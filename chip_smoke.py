@@ -7,7 +7,7 @@ Phases, in order; any failure exits non-zero before the last line:
 
 1. device: require CUDA (no CPU fallback); print the card's name and
    power limit as nvidia-smi reports them;
-2. build: compile the three CUDA kernels from ``ocean_torch/csrc`` (one
+2. build: compile the five CUDA kernels from ``ocean_torch/csrc`` (one
    nvcc per source, in parallel) and print the seconds;
 3. setup at the scalability configuration of ``bench.py::_build`` (unit
    square [0,2]², Nx=32, K=10⁴ buoys, nt=200, line search off, dense
@@ -16,19 +16,34 @@ Phases, in order; any failure exits non-zero before the last line:
    problem, and run one warm-up GD step whose state feeds phase 4;
 4. each kernel against its plain PyTorch version on the same inputs at
    the main path's shapes: maximum error against the stated tolerance,
-   kernel and plain times (CUDA events), and for the point sources two
-   launches bit-identical plus the ``index_add_`` yardstick;
-5. a small-input reference check: one GD step at Nx=8, K=100 through the
-   kernels on the card against the plain versions on the CPU;
-6. the main path: launch counts set to 0, one GD step from
-   ``initial_control(case=4)``, counts read (each kernel must have run);
-   J finite, not diverged, Newton converged; then the median seconds of
-   3 repeats at the fixed control.
+   kernel and plain times (CUDA events), two launches bit-identical for
+   the integer sums (point sources, segment sum), and the ``index_add_``
+   yardstick where one exists;
+5. small-input reference checks: one GD step of path 1 and one of path 2
+   at Nx=8, K=100 through the kernels on the card against the plain
+   versions on the CPU;
+6. path 1, the main path: launch counts set to 0, one GD step from
+   ``initial_control(case=4)``, counts read (its three kernels must have
+   run, the other two not); J finite, not diverged, Newton converged;
+   the median seconds of 3 repeats at the fixed control; a per-stage
+   breakdown;
+7. path 2, the same configuration with the exact segment-sum point
+   sources (``psrc_method="ozaki_pallas"``) and the consistent adjoint,
+   at a constant outflow control that ejects buoys: counts set to 0, one
+   GD step (primal ODE, adjoint ODE and segment sum must have run, the
+   point-source kernel not), its median seconds, and its adjoint RHS
+   against the "fused" kernel's on the same forward state;
+8. the parallel-prefix adjoint entry points with the grid tables
+   (``solve_adjoint_ode(method="parallel", grid=)`` on path 1's state,
+   ``solve_adjoint_ode_consistent(grid=)`` on path 2's): each launches
+   the ∇u evaluation kernel once and matches the sequential adjoint
+   kernel.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -48,12 +63,20 @@ PEAK_F64_FLOP_PER_S = 34e12
 # weights ≈ 25, 3×3 patch sum of 2 components = 36, Euler step 4; P1
 # weights ≈ 6, 2×2 patch sum of 4 components = 32, μ update 12; per
 # point-source lane: locate + P2 weights + 6 nonzero nodes × 2 components
-# × (multiply + 4 split operations) = 95.
+# × (multiply + 4 split operations) = 95; ∇u evaluation point: locate 10
+# + P1 weights 3 + 2×2 patch sum of 4 components 28 = 41; Ozaki value:
+# divide by the scale, then 8 slices × (multiply, rint, divide, subtract)
+# = 33.
 OPS_PRIMAL_STEP = 75
 OPS_ADJOINT_STEP = 60
 OPS_PSRC_POINT = 95
+OPS_P1_EVAL_POINT = 41
+OPS_OZAKI_VALUE = 33
 
 TOL = 1e-12
+
+PATH1 = ("primal_ode", "adjoint_ode", "point_sources")
+PATH2 = ("primal_ode", "adjoint_ode", "segment_sum")
 
 
 def fail(msg: str) -> None:
@@ -102,9 +125,7 @@ def stage_seconds(prob, f, lr) -> dict:
     ``system.gd_step`` runs them, each ending in a synchronize."""
     import torch
     from ocean_torch import system
-    from ocean_torch.adjoint import point_source_rhs
     from ocean_torch.fem import assemble
-    from ocean_torch.ode import solve_adjoint_ode_cuda
     from ocean_torch.solve import solve_operator_reuse_t
 
     out = {}
@@ -122,11 +143,11 @@ def stage_seconds(prob, f, lr) -> dict:
     ode = timed("primal_ode", lambda: system._primal_ode(prob, u))
     grad_u = timed("gradu_projection",
                    lambda: prob.projector.project(prob.space, u))
-    mu = timed("adjoint_ode", lambda: solve_adjoint_ode_cuda(
-        prob.grid, grad_u, ode.x, ode.u_values, prob.u_d, ode.mask, prob.h))
-    b = timed("point_sources", lambda: point_source_rhs(
-        prob.space, u, ode.x, mu, prob.u_d, ode.mask, prob.h, prob.center,
-        method=prob.psrc_method, grid=prob.grid, u_values=ode.u_values))
+    state = (ode.x, ode.u_values, ode.mask, ode.x_raw, ode.kfail)
+    mu = timed("adjoint_ode",
+               lambda: system._adjoint_mu(prob, grad_u, *state))
+    b = timed("point_sources",
+              lambda: system._adjoint_sources(prob, u, mu, *state))
     op = timed("adjoint_assemble", lambda: assemble.adjoint_operator(
         prob.space, prob.bq, newton.w, prob.bc_dofs))
     z, _ = timed("adjoint_solve", lambda: solve_operator_reuse_t(
@@ -142,8 +163,176 @@ def stage_seconds(prob, f, lr) -> dict:
     return out
 
 
-def main() -> int:
+def print_stages(name: str, prob, f, lr) -> None:
+    stages = stage_seconds(prob, f, lr)
+    print(f"{name} stages (s, host clock, one GD step): "
+          f"{json.dumps(stages)} sum {sum(stages.values())!r}", flush=True)
+
+
+def p1_eval_record(ge, g_img, x) -> dict:
+    """Kernel 4 (∇u at every trajectory point) against its plain version:
+    values within TOL, inside flags identical."""
+    import torch
+    from ocean_torch.ode.cuda_eval import eval_p1_tensor_cuda
+    from ocean_torch.ode.grideval import eval_p1_tensor_grid
+
+    vk, ik = eval_p1_tensor_cuda(ge, g_img, x)
+    torch.cuda.synchronize()
+    vp, ip = eval_p1_tensor_grid(ge, g_img, x)
+    check(torch.equal(ik, ip), "p1_eval: inside flags differ from the plain "
+          "version")
+    err = float((vk - vp).abs().max())
+    check(err <= TOL, f"p1_eval: max error {err} > {TOL}")
+    ms = cuda_ms(lambda: eval_p1_tensor_cuda(ge, g_img, x), 20)
+    plain = cuda_ms(lambda: eval_p1_tensor_grid(ge, g_img, x), 5)
+    n = x.numel() // 2
+    Gy, Gx = ge.vg_shape
+    nbytes = 8 * (2 * n + 4 * Gy * Gx + 4 * n) + n
+    b, by = bound_ms(nbytes, OPS_P1_EVAL_POINT * n)
+    print(f"p1_eval: max_abs_err={err!r} N={n} outside={int((~ik).sum())} "
+          f"ms={ms:.4f} plain_ms={plain:.4f} bound_ms={b:.4f}", flush=True)
+    return dict(name="p1_eval", route="cuda",
+                source="ocean_torch/csrc/p1_eval.cu",
+                replaces="ocean_jax/ode/pallas_eval.py:201",
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
+                bound_by=by, library_ms=None)
+
+
+def segment_sum_record(cell, vals, num_cells: int) -> dict:
+    """Kernel 5 (exact slice sums of the Ozaki segment sum) on the (M, 12)
+    per-point terms: two launches and the plain version bit-identical,
+    the recombined sums within 1e-12·scale of a float64 ``index_add_``."""
+    import torch
+    from ocean_torch.ops.psum_cuda import (ozaki_slice_sums,
+                                           ozaki_slice_sums_plain)
+    from ocean_torch.ops.scatter import ozaki_segment_sum, pow2_scale
+
+    S = num_cells
+    scale = pow2_scale(vals)
+    ak = ozaki_slice_sums(cell, vals, scale, S)
+    ak2 = ozaki_slice_sums(cell, vals, scale, S)
+    torch.cuda.synchronize()
+    check(torch.equal(ak, ak2), "segment_sum: two launches differ")
+    ap = ozaki_slice_sums_plain(cell, vals, scale, S)
+    check(torch.equal(ak, ap), "segment_sum: differs from the plain version")
+    err = float((ak - ap).abs().max())
+    out = ozaki_segment_sum(cell, vals, S)
+
+    def index_add(v):
+        return torch.zeros(S, 12, dtype=torch.float64,
+                           device=vals.device).index_add_(0, cell, v)
+
+    # A float64 reference accurate to ~1e-17·scale: each value split into
+    # a high part on the 2^-26·scale grid, whose sums are exact in any
+    # order (fewer than 2^26 terms per segment), and a remainder below
+    # 2^-27·scale. Bound: 1e-12·scale, plus the rounding of each sum
+    # itself to float64 (half an ulp on each side).
+    step = scale * 2.0 ** -26
+    hi = torch.round(vals / step) * step
+    exact = index_add(hi) + index_add(vals - hi)
+    err_exact = float(((out - exact).abs() / scale).max())
+    check(bool(((out - exact).abs()
+                <= 1e-12 * scale + 2.0 ** -52 * exact.abs()).all()),
+          f"segment_sum: {err_exact}·scale from the exact reference")
+    # the plain float64 index_add_ is itself off by up to (n−1)·2^-53·Σ|v|
+    # per segment of n terms, far above 1e-12·scale for long segments of
+    # one sign; it is held to that bound
+    ref = index_add(vals)
+    n = torch.bincount(cell, minlength=S + 1)[:S, None].to(torch.float64)
+    own = (n - 1).clamp(min=0) * 2.0 ** -53 * index_add(vals.abs())
+    err_f64 = float(((out - ref).abs() / scale).max())
+    check(bool(((out - ref).abs()
+                <= 1e-12 * scale + 2.0 ** -52 * exact.abs() + own).all()),
+          f"segment_sum: {err_f64}·scale from the float64 index_add_")
+    ms = cuda_ms(lambda: ozaki_slice_sums(cell, vals, scale, S), 20)
+    plain = cuda_ms(lambda: ozaki_slice_sums_plain(cell, vals, scale, S), 3)
+    lib = cuda_ms(lambda: torch.zeros(S, 12, dtype=torch.float64,
+                                      device=vals.device)
+                  .index_add_(0, cell, vals), 20)
+    M = vals.shape[0]
+    nbytes = 8 * (12 * M + M + 12 + 8 * 12 * S)
+    b, by = bound_ms(nbytes, OPS_OZAKI_VALUE * 12 * M)
+    print(f"segment_sum: max_abs_err={err!r} (int64 slice sums) "
+          f"vs_exact={err_exact!r}·scale vs_index_add={err_f64!r}·scale "
+          f"max_terms={int(n.max())} M={M} S={S} ms={ms:.4f} "
+          f"plain_ms={plain:.4f} index_add_ms={lib:.4f} bound_ms={b:.4f}",
+          flush=True)
+    return dict(name="segment_sum", route="cuda",
+                source="ocean_torch/csrc/segment_sum.cu",
+                replaces="ocean_jax/ops/psum_pallas.py:113",
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
+                bound_by=by, library_ms=lib)
+
+
+def small_reference(name: str, cfg, control, lr) -> None:
+    """One GD step at a small size through the kernels on the card against
+    the plain versions on the CPU: J within 1e-10 and f_new within 1e-8
+    relative, the same buoys escaped. ``control(prob)`` is the control."""
     import numpy as np
+    import torch
+    from ocean_torch import system
+    from ocean_torch.pipelines.ud_construction import seed_positions
+
+    # u_d from a seed: a generated one would share the cache key
+    # "100_buoys" with other resolutions
+    rng = np.random.default_rng(7)
+    ud_s = 0.1 + 0.02 * rng.standard_normal((100, 200, 2))
+    ud_s[..., 1] -= 0.1
+    x0_s = seed_positions(100)
+    res = {}
+    for where in ("cpu", "cuda"):
+        p = system.build_problem(cfg, u_d=ud_s, x0=x0_s, device=where)
+        res[where] = system.gd_step(p, control(p), lr)
+    cpu, gpu = res["cpu"], res["cuda"]
+    check(torch.equal(gpu.fwd.mask.cpu(), cpu.fwd.mask),
+          f"{name}: escaped buoys differ between card and CPU")
+    dj = abs(float(gpu.J) - float(cpu.J)) / abs(float(cpu.J))
+    dq = float((gpu.f_new.quad.cpu() - cpu.f_new.quad).abs().max()
+               / cpu.f_new.quad.abs().max())
+    check(dj < 1e-10 and dq < 1e-8, f"{name}: J rel {dj}, f_new rel {dq}")
+    print(f"{name} (Nx=8, K=100): J rel {dj!r} f_new rel {dq!r} "
+          f"escaped={int(cpu.fwd.mask.sum())}", flush=True)
+
+
+def run_path(name: str, prob, f, lr, kernels_on: tuple, metric: str,
+             card: str):
+    """Counts set to 0, one GD step, counts read: each kernel of
+    ``kernels_on`` launched, no other. Then the median host seconds of 3
+    repeats at the fixed control. Returns (result, counts)."""
+    import torch
+    from ocean_torch import kernels, system
+
+    kernels.reset_launch_counts()
+    res = system.gd_step(prob, f, lr)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    check(all(counts[n] >= 1 for n in kernels_on)
+          and all(counts[n] == 0 for n in counts if n not in kernels_on),
+          f"{name}: launches {counts}, expected exactly {kernels_on}")
+    j = float(res.J)
+    check(j == j and abs(j) != float("inf"), f"{name}: non-finite J {j}")
+    check(not res.diverged, f"{name}: GD step diverged")
+    check(res.fwd.newton.converged, f"{name}: Newton did not converge")
+    check(res.f_new.quad.shape == f.quad.shape
+          and bool(torch.isfinite(res.f_new.quad).all()),
+          f"{name}: bad control update")
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        r_ = system.gd_step(prob, f, lr)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        dj = abs(float(r_.J) - j) / abs(j)
+        check(dj < 1e-12, f"{name}: GD step at a fixed control drifts: {dj}")
+    times.sort()
+    print(f"{name}: J={j!r} newton_iters={res.fwd.newton.iterations} "
+          f"escaped={int(res.fwd.mask.sum())} launches={counts}", flush=True)
+    print(f"{metric}: median {times[1]!r} (repeats {times!r}) on {card}",
+          flush=True)
+    return res, counts
+
+
+def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test runs on "
@@ -157,17 +346,20 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from ocean_torch import kernels, system
+    from ocean_torch import control as ctrl_mod, kernels, system
     from ocean_torch.config import OCPConfig
     from ocean_torch.pipelines.limits import ensure_ud
-    from ocean_torch.pipelines.ud_construction import seed_positions
+    from ocean_torch.ode import (solve_adjoint_ode, solve_adjoint_ode_cuda,
+                                 solve_adjoint_ode_consistent)
     from ocean_torch.ode.grideval import velocity_to_grid, grad_to_grid
     from ocean_torch.ode.cuda_ode import (primal_ode_steps,
                                           primal_ode_steps_plain)
     from ocean_torch.ode.cuda_adjoint import (adjoint_ode_steps,
                                               adjoint_ode_steps_plain)
-    from ocean_torch.adjoint.cuda_psrc import (
-        point_source_limbs, point_source_limbs_plain, gamma_scale)
+    from ocean_torch.adjoint.cuda_psrc import (point_source_limbs,
+                                               point_source_limbs_plain)
+    from ocean_torch.adjoint.point_sources import point_source_terms
+    from ocean_torch.ops.scatter import pow2_scale
     from ocean_torch.ode.grideval import grid_coords, p2_patch_weights
 
     dev = torch.device("cuda")
@@ -272,7 +464,7 @@ def main() -> int:
     gamma = h * ((prob.u_d - fwd.u_values) + mu)
     gamma = torch.where((~fwd.mask)[:, None, None], gamma, 0.0)
     pts = fwd.x.reshape(-1, 2).contiguous()
-    scale = gamma_scale(gamma.reshape(-1, 2))
+    scale = pow2_scale(gamma.reshape(-1, 2))
     r = (gamma.reshape(-1, 2) / scale).contiguous()
     hk, lk = point_source_limbs(ge, pts, r)
     hk2, lk2 = point_source_limbs(ge, pts, r)
@@ -319,64 +511,102 @@ def main() -> int:
           f"index_add_ms={lib:.4f} bound_ms={b:.4f}", flush=True)
     del xp, up, mp, hp, lp, W, vals, nodes
 
+    # kernel 4: ∇u at all K·nt trajectory points of path 1
+    records.append(p1_eval_record(ge, g_img, fwd.x))
+
+    # kernel 5: the per-point terms of the non-fused point-source stage,
+    # from path 1's trajectories and μ
+    cell, terms = point_source_terms(
+        prob.space, u, fwd.x, mu, prob.u_d,
+        (~fwd.mask)[:, None].expand(K, nt), h, prob.center)
+    records.append(segment_sum_record(cell, terms.reshape(-1, 12),
+                                      prob.space.num_cells))
+    del cell, terms
+
     # --- 5. small-input reference: card kernels vs CPU plain versions -----
-    # (u_d from a seed: a generated one would share the cache key
-    # "100_buoys" with other resolutions)
-    small = OCPConfig(ud_experiment="100_buoys", unit_square_resolution=8,
-                      use_line_search=False, num_steps=1,
-                      psrc_method="fused", ode_backend="pallas",
-                      newton_reuse_lu=True)
-    rng = np.random.default_rng(7)
-    ud_s = 0.1 + 0.02 * rng.standard_normal((100, 200, 2))
-    ud_s[..., 1] -= 0.1
-    x0_s = seed_positions(100)
-    res = {}
-    for where in ("cpu", "cuda"):
-        p = system.build_problem(small, u_d=ud_s, x0=x0_s, device=where)
-        res[where] = system.gd_step(p, system.initial_control(p, 4), lr)
-    dj = abs(float(res["cuda"].J) - float(res["cpu"].J)) / abs(
-        float(res["cpu"].J))
-    dq = float((res["cuda"].f_new.quad.cpu() - res["cpu"].f_new.quad).abs()
-               .max() / res["cpu"].f_new.quad.abs().max())
-    check(dj < 1e-10 and dq < 1e-8,
-          f"small reference: J rel {dj}, f_new rel {dq}")
-    print(f"small reference (Nx=8, K=100): J rel {dj!r} f_new rel {dq!r}",
+    small = dict(ud_experiment="100_buoys", unit_square_resolution=8,
+                 use_line_search=False, num_steps=1, ode_backend="pallas",
+                 newton_reuse_lu=True)
+    small_reference("small reference, path 1",
+                    OCPConfig(psrc_method="fused", **small),
+                    lambda p: system.initial_control(p, 4), lr)
+    # [4, 0] ejects 41 of the 100 buoys at this size ([3, 0] ejects none)
+    small_reference("small reference, path 2",
+                    OCPConfig(psrc_method="ozaki_pallas",
+                              adjoint_mode="consistent", **small),
+                    lambda p: ctrl_mod.constant(p.space, p.bq, [4.0, 0.0]),
+                    lr)
+
+    # --- 6. path 1, the main path -----------------------------------------
+    _, counts1 = run_path("main path", prob, f, lr, PATH1,
+                          "gd_iteration_seconds_10000_buoys", card)
+    print_stages("path 1", prob, f, lr)
+
+    # --- 7. path 2: exact segment-sum point sources, consistent adjoint ---
+    cfg2 = dataclasses.replace(cfg, psrc_method="ozaki_pallas",
+                               adjoint_mode="consistent")
+    prob2 = system.build_problem(cfg2, u_d=u_d, x0=x0, device=dev)
+    # the outflow control of tests/test_consistent_adjoint.py, made
+    # stronger until it ejects a buoy
+    for push in (3.0, 4.0, 6.0):
+        f2 = ctrl_mod.constant(prob2.space, prob2.bq, [push, 0.0])
+        escaped = int(system._forward(prob2, f2.quad).mask.sum())
+        if escaped:
+            break
+    print(f"path 2 control: constant [{push}, 0.0] ejects {escaped} of "
+          f"{prob2.K} buoys", flush=True)
+    check(escaped >= 1, "path 2: no control ejected a buoy")
+    res2, counts2 = run_path(
+        "path 2 (ozaki_pallas, consistent)", prob2, f2, lr, PATH2,
+        "gd_iteration_seconds_10000_buoys_ozaki_consistent", card)
+    print_stages("path 2", prob2, f2, lr)
+    fwd2 = res2.fwd
+    b_oz = system.adjoint_rhs(prob2, fwd2)
+    b_fu = system.adjoint_rhs(
+        dataclasses.replace(prob2, psrc_method="fused"), fwd2)
+    rel = float((b_oz - b_fu).abs().max() / b_fu.abs().max())
+    check(rel <= TOL, f"path 2: ozaki_pallas and fused RHS differ by {rel} "
+          "of max|b|")
+    print(f"path 2 adjoint RHS, ozaki_pallas vs fused: {rel!r} of max|b|",
           flush=True)
 
-    # --- 6. the main path -------------------------------------------------
+    # --- 8. the grid= adjoint entry points (kernel 4) ----------------------
     kernels.reset_launch_counts()
-    res = system.gd_step(prob, f, lr)
+    mu_par = solve_adjoint_ode(prob.space, grad_u, fwd.x, fwd.u_values,
+                               prob.u_d, fwd.mask, h, method="parallel",
+                               grid=ge)
     torch.cuda.synchronize()
-    counts = kernels.launch_counts()
-    j = float(res.J)
-    check(all(n >= 1 for n in counts.values()),
-          f"a kernel did not run on the main path: {counts}")
-    check(j == j and abs(j) != float("inf"), f"non-finite J {j}")
-    check(not res.diverged, "GD step diverged")
-    check(res.fwd.newton.converged, "Newton did not converge")
-    check(res.f_new.quad.shape == f.quad.shape
-          and bool(torch.isfinite(res.f_new.quad).all()),
-          "bad control update")
-    times = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        r_ = system.gd_step(prob, f, lr)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        dj = abs(float(r_.J) - j) / abs(j)
-        check(dj < 1e-12, f"GD step at a fixed control drifts: {dj}")
-    times.sort()
-    print(f"main path: J={j!r} newton_iters={res.fwd.newton.iterations} "
-          f"escaped={int(res.fwd.mask.sum())} launches={counts}", flush=True)
-    print(f"gd_iteration_seconds_10000_buoys: median {times[1]!r} "
-          f"(repeats {times!r}) on {card}", flush=True)
+    check(kernels.LAUNCHES["p1_eval"] == 1,
+          "solve_adjoint_ode(grid=) did not launch p1_eval once")
+    mu_seq = solve_adjoint_ode_cuda(ge, grad_u, fwd.x, fwd.u_values,
+                                    prob.u_d, fwd.mask, h)
+    err_par = float((mu_par - mu_seq).abs().max())
+    check(err_par <= TOL, f"parallel adjoint vs kernel: {err_par} > {TOL}")
+    u2, _ = prob2.space.split(fwd2.w)
+    grad_u2 = prob2.projector.project(prob2.space, u2)
+    mu_con = solve_adjoint_ode_consistent(
+        prob2.space, grad_u2, fwd2.x_raw, fwd2.u_values, prob2.u_d,
+        fwd2.mask, fwd2.kfail, h, grid=prob2.grid)
+    torch.cuda.synchronize()
+    counts3 = kernels.launch_counts()
+    check(counts3["p1_eval"] == 2,
+          "solve_adjoint_ode_consistent(grid=) did not launch p1_eval once")
+    vlimit2 = torch.where(fwd2.mask, fwd2.kfail.to(torch.int64) - 1, nt)
+    mu_win = solve_adjoint_ode_cuda(
+        prob2.grid, grad_u2, fwd2.x_raw, fwd2.u_values, prob2.u_d,
+        torch.zeros_like(fwd2.mask), h, vlimit=vlimit2)
+    err_con = float((mu_con - mu_win).abs().max())
+    check(err_con <= TOL, f"consistent adjoint vs kernel: {err_con} > {TOL}")
+    print(f"grid= adjoint entry points: parallel vs kernel {err_par!r}, "
+          f"consistent vs kernel (vlimit) {err_con!r}, max|mu| "
+          f"{float(mu_par.abs().max())!r} / {float(mu_con.abs().max())!r}, "
+          f"launches={counts3}", flush=True)
 
-    stages = stage_seconds(prob, f, lr)
-    print(f"stages (s, host clock, one GD step): {json.dumps(stages)} "
-          f"sum {sum(stages.values())!r}", flush=True)
-
+    launches = {n: counts1[n] for n in PATH1}
+    launches.update({n: counts2[n] for n in PATH2 if n not in PATH1})
+    launches["p1_eval"] = counts3["p1_eval"]
     for rec in records:
-        rec["launches"] = counts[rec["name"]]
+        rec["launches"] = launches[rec["name"]]
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

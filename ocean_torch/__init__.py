@@ -3,9 +3,10 @@
 Same problem, same algorithms, same array layouts at every public
 boundary as ``ocean_jax``; the JAX package stays the reference the port
 is tested against (``tests/test_torch_*.py``). Plain tensor code is
-PyTorch in float64 throughout; the three kernels of the main path (primal
-buoy ODE, adjoint buoy ODE, fused point sources) are hand-written CUDA
-C++ for Hopper (``csrc/``), each with a plain PyTorch twin beside it.
+PyTorch in float64 throughout; the five kernels (primal buoy ODE,
+adjoint buoy ODE, fused point sources, ∇u point evaluation, Ozaki
+segment sum) are hand-written CUDA C++ for Hopper (``csrc/``), each with
+a plain PyTorch twin beside it.
 
 This package imports neither ``jax`` nor ``ocean_jax``.
 

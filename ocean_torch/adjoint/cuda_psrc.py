@@ -20,6 +20,7 @@ import torch
 from .. import kernels
 from ..mesh.locate import _EPS
 from ..ode.grideval import GridEval, grid_coords, p2_patch_weights
+from ..ops.scatter import pow2_scale
 
 _TWO40 = 2.0 ** 40
 _TWO_M40 = 2.0 ** -40
@@ -76,13 +77,6 @@ def point_source_limbs(ge: GridEval, points: torch.Tensor, r: torch.Tensor):
     return hi, lo
 
 
-def gamma_scale(gamma: torch.Tensor) -> torch.Tensor:
-    """Per-component power of two ≥ max|γ| (1 where γ ≡ 0)."""
-    maxabs = gamma.abs().amax(dim=0)
-    return torch.exp2(torch.ceil(torch.log2(
-        torch.where(maxabs > 0, maxabs, torch.ones_like(maxabs)))))
-
-
 def point_source_image(ge: GridEval, points: torch.Tensor,
                        gamma: torch.Tensor) -> torch.Tensor:
     """b_vel (n_p2, 2) = Σ_m γ_m φ(x_m) through the kernel. ``gamma``
@@ -90,7 +84,7 @@ def point_source_image(ge: GridEval, points: torch.Tensor,
     located clamped, as ``mesh.locate.locate_points`` does."""
     points = points.reshape(-1, 2)
     gamma = gamma.reshape(-1, 2)
-    scale = gamma_scale(gamma)
+    scale = pow2_scale(gamma)
     hi, lo = point_source_limbs(ge, points, gamma / scale)
     img = (hi.to(torch.float64) * _TWO_M40
            + lo.to(torch.float64) * _TWO_M80) * scale

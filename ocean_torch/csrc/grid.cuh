@@ -1,4 +1,4 @@
-// Shared device helpers of the three kernels: point location on the
+// Shared device helpers of the grid kernels: point location on the
 // uniform structured grid ("right" diagonal) and the closed-form P2/P1
 // patch weights of ocean_torch/ode/grideval.py.
 //

@@ -35,6 +35,8 @@ SOURCES = {
     "primal_ode": "primal_ode.cu",
     "adjoint_ode": "adjoint_ode.cu",
     "point_sources": "point_sources.cu",
+    "p1_eval": "p1_eval.cu",
+    "segment_sum": "segment_sum.cu",
 }
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]

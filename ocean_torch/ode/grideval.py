@@ -7,7 +7,7 @@ vertex grid. Point evaluation needs no index tables: the owning square
 and local coordinates ``(s, t)`` are arithmetic, and the six active P2
 basis functions are a closed-form 3×3 patch-weight stencil (the three
 nodes outside the owning triangle get weight 0). These are the tables
-the three CUDA kernels read.
+the CUDA kernels read.
 
 The patch sums here run in one fixed order (row b, then column a), the
 order the kernels use, so a kernel and its plain version agree bit for

@@ -1,6 +1,6 @@
 """The coupled OCP system: problem container and the stage functions of
-one gradient-descent iteration (port of the dense, reference-mode,
-no-line-search branch of ``ocean_jax/system.py``).
+one gradient-descent iteration (port of the dense, no-line-search branch
+of ``ocean_jax/system.py``, reference and consistent adjoint modes).
 
     _solve_ns          primal Navier–Stokes chord Newton solve
     _forward           NS + primal buoy ODE
@@ -12,9 +12,8 @@ no-line-search branch of ``ocean_jax/system.py``).
 
 PyTorch runs eagerly, so host loops and Python ``if`` on ``.item()``
 values replace ``lax.while_loop``/``lax.cond``. Branches the port does
-not have yet (L-shape domain, multigrid, continuation, consistent
-adjoint, Armijo line search, float32 chord sweeps) raise
-``NotImplementedError``.
+not have yet (L-shape domain, multigrid, continuation, Armijo line
+search, float32 chord sweeps) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -37,7 +36,8 @@ from .fem import (assemble, make_space, make_boundary_quad,
 from .fem.interpolate import boundary_eval_velocity
 from .fem.spaces import TaylorHoodSpace, BoundaryQuad
 from .mesh import rectangle_mesh, mark_boundary_facets
-from .ode import (solve_primal_ode, solve_adjoint_ode, solve_primal_ode_cuda,
+from .ode import (solve_primal_ode, solve_adjoint_ode,
+                  solve_adjoint_ode_consistent, solve_primal_ode_cuda,
                   solve_adjoint_ode_cuda)
 from .ode.grideval import GridEval, make_grideval
 from .ops import linalg
@@ -70,10 +70,13 @@ class OCPProblem:
     refine_iters: int = 6
     newton_reuse_lu: bool = False    # chord Newton on the Stokes factor
     newton_correction_iters: int = 1
-    psrc_method: str = "scatter"     # "scatter" | "fused" (CUDA kernel)
+    # "scatter" | "binned" | "sorted" | "ozaki" | "ozaki_pallas" (the
+    # segment-sum kernel) | "fused" (the point-source kernel)
+    psrc_method: str = "scatter"
     ode_backend: str = "gather"      # "gather" | "pallas" (CUDA kernels)
     grid: Optional[GridEval] = None  # half-grid tables of the kernels
     adjoint_reuse_lu: bool = False   # adjoint through the transposed fac0
+    adjoint_mode: str = "reference"  # "reference" | "consistent"
     # float64 LU factors of the Stokes (w=0) Jacobian: the first matrix
     # every Newton solve factorizes is control-independent, so it is
     # factorized once per problem
@@ -147,9 +150,10 @@ def resolve_adjoint_reuse(mode: str, nu: float) -> bool:
 
 def _check_supported(cfg: OCPConfig) -> None:
     unsupported = {
-        "adjoint_mode": (cfg.adjoint_mode, ("reference",)),
+        "adjoint_mode": (cfg.adjoint_mode, ("reference", "consistent")),
         "ode_backend": (cfg.ode_backend, ("gather", "pallas")),
-        "psrc_method": (cfg.psrc_method, ("scatter", "fused")),
+        "psrc_method": (cfg.psrc_method, ("scatter", "binned", "sorted",
+                                          "ozaki", "ozaki_pallas", "fused")),
         "linear_solver": (cfg.linear_solver, ("auto", "dense")),
         "newton_continuation": (cfg.newton_continuation, (0,)),
         "newton_chord_f32": (cfg.newton_chord_f32, (False,)),
@@ -211,6 +215,7 @@ def build_problem(cfg: OCPConfig, u_d=None, x0=None,
               else None),
         adjoint_reuse_lu=resolve_adjoint_reuse(cfg.adjoint_reuse_lu,
                                                cfg.viscosity),
+        adjoint_mode=cfg.adjoint_mode,
         fac0=fac0)
 
 
@@ -292,20 +297,49 @@ def cost(prob: OCPProblem, u_values: torch.Tensor,
     return part_a + part_b
 
 
-def _adjoint_rhs_body(prob: OCPProblem, u: torch.Tensor,
-                      grad_u: torch.Tensor, x: torch.Tensor,
-                      u_values: torch.Tensor,
-                      mask: torch.Tensor) -> torch.Tensor:
-    """Adjoint ODE + point-source RHS (reference mode)."""
+def _adjoint_mu(prob: OCPProblem, grad_u: torch.Tensor, x: torch.Tensor,
+                u_values: torch.Tensor, mask: torch.Tensor,
+                x_raw: torch.Tensor, kfail: torch.Tensor) -> torch.Tensor:
+    """The costate μ (K, nt, 2). The "pallas" backend runs the CUDA
+    adjoint kernel. "consistent" mode runs the recursion on the raw
+    trajectory over each escaped buoy's window t ≤ kfail−1."""
+    if prob.adjoint_mode == "consistent":
+        if prob.ode_backend == "pallas":
+            vlimit = torch.where(mask, kfail.to(torch.int64) - 1, prob.nt)
+            return solve_adjoint_ode_cuda(prob.grid, grad_u, x_raw, u_values,
+                                          prob.u_d, torch.zeros_like(mask),
+                                          prob.h, vlimit=vlimit)
+        return solve_adjoint_ode_consistent(prob.space, grad_u, x_raw,
+                                            u_values, prob.u_d, mask, kfail,
+                                            prob.h)
     if prob.ode_backend == "pallas":
-        mu = solve_adjoint_ode_cuda(prob.grid, grad_u, x, u_values, prob.u_d,
-                                    mask, prob.h)
-    else:
-        mu = solve_adjoint_ode(prob.space, grad_u, x, u_values, prob.u_d,
-                               mask, prob.h)
+        return solve_adjoint_ode_cuda(prob.grid, grad_u, x, u_values,
+                                      prob.u_d, mask, prob.h)
+    return solve_adjoint_ode(prob.space, grad_u, x, u_values, prob.u_d, mask,
+                             prob.h)
+
+
+def _adjoint_sources(prob: OCPProblem, u: torch.Tensor, mu: torch.Tensor,
+                     x: torch.Tensor, u_values: torch.Tensor,
+                     mask: torch.Tensor, x_raw: torch.Tensor,
+                     kfail: torch.Tensor) -> torch.Tensor:
+    """The point-source RHS b from μ. "consistent" mode keeps escaped
+    buoys' pre-escape sources at the raw positions, plus the u(center)
+    quirk term at kfail+1."""
+    active_t = None
+    if prob.adjoint_mode == "consistent":
+        t = torch.arange(prob.nt, device=x.device)[None, :]
+        kf = kfail.to(torch.int64)[:, None]
+        pre = t <= kf - 1
+        quirk = t == kf + 1                     # u_values[kf+1] = u(center)
+        m = mask[:, None]
+        x = torch.where(m[..., None],
+                        torch.where(pre[..., None], x_raw, prob.center), x)
+        active_t = torch.where(m, pre | quirk, True)
     return point_source_rhs(prob.space, u, x, mu, prob.u_d, mask, prob.h,
                             prob.center, method=prob.psrc_method,
-                            grid=prob.grid, u_values=u_values)
+                            active_t=active_t, grid=prob.grid,
+                            u_values=u_values)
 
 
 def adjoint_rhs(prob: OCPProblem, fwd: ForwardState) -> torch.Tensor:
@@ -313,7 +347,9 @@ def adjoint_rhs(prob: OCPProblem, fwd: ForwardState) -> torch.Tensor:
     load vector b."""
     u, _ = prob.space.split(fwd.w)
     grad_u = prob.projector.project(prob.space, u)
-    return _adjoint_rhs_body(prob, u, grad_u, fwd.x, fwd.u_values, fwd.mask)
+    state = (fwd.x, fwd.u_values, fwd.mask, fwd.x_raw, fwd.kfail)
+    mu = _adjoint_mu(prob, grad_u, *state)
+    return _adjoint_sources(prob, u, mu, *state)
 
 
 def _solve_adjoint_flagged(prob: OCPProblem, fwd: ForwardState

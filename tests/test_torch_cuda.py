@@ -1,4 +1,4 @@
-"""The three CUDA kernels against their plain PyTorch versions, on the
+"""The five CUDA kernels against their plain PyTorch versions, on the
 card (marker ``cuda``; skipped where there is no CUDA device). Run them
 on a machine with an NVIDIA Hopper GPU and nvcc:
 
@@ -8,8 +8,10 @@ Tolerances: the kernels are compiled without FMA contraction and
 evaluate every double operation in the plain version's order, so
 trajectories, escape flags and μ are expected bit-identical; the bound
 asserted is 1e-12 absolute (failed/kfail exactly equal). The point-source
-limbs are integer sums: identical across launches and to the plain
-version.
+limbs and the Ozaki slice sums are integer sums: identical across
+launches and to the plain version. The ∇u evaluation is one patch sum
+per point in the plain version's order: bit-identical, inside flags
+included.
 """
 
 import numpy as np
@@ -26,6 +28,10 @@ from ocean_torch.ode.cuda_adjoint import (adjoint_ode_steps,
                                           adjoint_ode_steps_plain)
 from ocean_torch.adjoint.cuda_psrc import (point_source_limbs,
                                            point_source_limbs_plain)
+from ocean_torch.ode.cuda_eval import eval_p1_tensor_cuda
+from ocean_torch.ode.grideval import eval_p1_tensor_grid
+from ocean_torch.ops.psum_cuda import ozaki_slice_sums, ozaki_slice_sums_plain
+from ocean_torch.ops.scatter import pow2_scale
 
 pytestmark = pytest.mark.cuda
 
@@ -95,6 +101,40 @@ def test_point_source_kernel_matches_plain(dev, grid):
     assert torch.equal(hk, hp) and torch.equal(lk, lp)
 
 
+def test_p1_eval_kernel_matches_plain(dev, grid):
+    st, ge = grid
+    rng = np.random.default_rng(3)
+    g = torch.as_tensor(rng.standard_normal((st.n_p1, 2, 2)), device=dev)
+    pts = rng.uniform(-0.3, 2.3, (100_000, 2))         # out-of-domain lanes
+    pts[:4] = [[0.0, 2.0], [2.0 + 1e-13, 1.0], [1.0, -2e-12], [2.0, 2.0]]
+    pts = torch.as_tensor(pts.reshape(1000, 100, 2), device=dev)
+    g_img = grad_to_grid(ge, g)
+    n0 = kernels.LAUNCHES["p1_eval"]
+    vk, ik = eval_p1_tensor_cuda(ge, g_img, pts)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["p1_eval"] == n0 + 1
+    vp, ip = eval_p1_tensor_grid(ge, g_img, pts)
+    assert vk.shape == (1000, 100, 2, 2) and not bool(ik.all())
+    assert torch.equal(ik, ip) and torch.equal(vk, vp)
+
+
+def test_segment_sum_kernel_matches_plain(dev):
+    rng = np.random.default_rng(4)
+    M, S = 300_000, 2048
+    ids = rng.integers(0, S + 1, M)                     # S: padding bin
+    ids[:5000] = 7                                      # a hot segment
+    vals = rng.standard_normal((M, 12)) * 10.0 ** rng.integers(-6, 3, (M, 1))
+    ids, vals = (torch.as_tensor(a, device=dev) for a in (ids, vals))
+    scale = pow2_scale(vals)
+    n0 = kernels.LAUNCHES["segment_sum"]
+    ak = ozaki_slice_sums(ids, vals, scale, S)
+    ak2 = ozaki_slice_sums(ids, vals, scale, S)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["segment_sum"] == n0 + 2
+    ap = ozaki_slice_sums_plain(ids, vals, scale, S)
+    assert torch.equal(ak, ak2) and torch.equal(ak, ap)
+
+
 def test_wrappers_reject_mixed_devices(dev, grid):
     st, ge = grid
     u_img = torch.zeros(ge.hg_shape[0] * ge.hg_shape[1], 2,
@@ -102,3 +142,11 @@ def test_wrappers_reject_mixed_devices(dev, grid):
     with pytest.raises(ValueError):
         primal_ode_steps(ge, u_img, torch.zeros(4, 2, dtype=torch.float64),
                          0.005, 10)
+    g_img = torch.zeros(ge.vg_shape[0] * ge.vg_shape[1], 2, 2,
+                        dtype=torch.float64, device=dev)
+    with pytest.raises(ValueError):
+        eval_p1_tensor_cuda(ge, g_img, torch.zeros(4, 2, dtype=torch.float64))
+    vals = torch.zeros(4, 12, dtype=torch.float64, device=dev)
+    with pytest.raises(ValueError):
+        ozaki_slice_sums(torch.zeros(4, dtype=torch.int64), vals,
+                         torch.ones(12, dtype=torch.float64, device=dev), 3)

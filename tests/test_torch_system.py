@@ -100,9 +100,9 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch):
 def test_unported_branches_raise():
     base = dict(u_d=np.zeros((100, 200, 2)), x0=seed_positions(100),
                 device="cpu")
-    for kw in (dict(L_shape=True), dict(adjoint_mode="consistent"),
+    for kw in (dict(L_shape=True), dict(newton_chord_f32=True),
                dict(linear_solver="mg"), dict(newton_continuation=3),
-               dict(ode_backend="grid"), dict(psrc_method="ozaki")):
+               dict(ode_backend="grid"), dict(mesh_diagonal="left")):
         with pytest.raises(NotImplementedError):
             system.build_problem(OCPConfig(**{**FAST, **kw}), **base)
     p = system.build_problem(OCPConfig(**FAST), **base)
@@ -114,7 +114,9 @@ def test_unported_branches_raise():
 def test_import_leaves_jax_out():
     code = ("import sys, ocean_torch, ocean_torch.system, "
             "ocean_torch.pipelines.limits, ocean_torch.convert, "
-            "ocean_torch.kernels; "
+            "ocean_torch.kernels, ocean_torch.ops.scatter, "
+            "ocean_torch.ops.psum_cuda, ocean_torch.ode.cuda_eval, "
+            "ocean_torch.ode.adjoint, ocean_torch.adjoint.point_sources; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m.startswith('ocean_jax')]; "
             "print(bad); sys.exit(1 if bad else 0)")
