@@ -8,7 +8,10 @@ Phases, in order; any failure exits non-zero before the last line:
 1. device: require CUDA (no CPU fallback); print the card's name and
    power limit as nvidia-smi reports them;
 2. build: compile the five CUDA kernels from ``ocean_torch/csrc`` (one
-   nvcc per source, in parallel) and print the seconds;
+   nvcc per source, in parallel) and print the seconds and what ptxas
+   says of registers, spills and shared memory (its "Used" line names
+   shared memory only where a kernel has some; no launch asks for
+   dynamic shared memory);
 3. setup at the scalability configuration of ``bench.py::_build`` (unit
    square [0,2]², Nx=32, K=10⁴ buoys, nt=200, line search off, dense
    solver, chord Newton on the Stokes factor, CUDA ODE and point-source
@@ -16,9 +19,13 @@ Phases, in order; any failure exits non-zero before the last line:
    problem, and run one warm-up GD step whose state feeds phase 4;
 4. each kernel against its plain PyTorch version on the same inputs at
    the main path's shapes: maximum error against the stated tolerance,
-   kernel and plain times (CUDA events), two launches bit-identical for
-   the integer sums (point sources, segment sum), and the ``index_add_``
-   yardstick where one exists;
+   kernel and plain times (CUDA events), the integer sums (point sources,
+   segment sum) bit-identical to the plain version and between two
+   launches, and the ``index_add_`` yardstick where one exists; then the
+   two scatter kernels on the small hard inputs of
+   ``tests/torch_kernel_cases.py`` (one square or segment, one per lane,
+   points on nodes and the diagonal, ragged M, zero and negative weights,
+   dropped ids, ±scale), each equal to the plain version;
 5. small-input reference checks: one GD step of path 1 and one of path 2
    at Nx=8, K=100 through the kernels on the card against the plain
    versions on the CPU;
@@ -31,8 +38,9 @@ Phases, in order; any failure exits non-zero before the last line:
    sources (``psrc_method="ozaki_pallas"``) and the consistent adjoint,
    at a constant outflow control that ejects buoys: counts set to 0, one
    GD step (primal ODE, adjoint ODE and segment sum must have run, the
-   point-source kernel not), its median seconds, and its adjoint RHS
-   against the "fused" kernel's on the same forward state;
+   point-source kernel not), its median seconds, its adjoint RHS
+   against the "fused" kernel's on the same forward state, and the two
+   scatter kernels' times on this state's inputs (shorter groups);
 8. the parallel-prefix adjoint entry points with the grid tables
    (``solve_adjoint_ode(method="parallel", grid=)`` on path 1's state,
    ``solve_adjoint_ode_consistent(grid=)`` on path 2's): each launches
@@ -198,17 +206,78 @@ def p1_eval_record(ge, g_img, x) -> dict:
                 bound_by=by, library_ms=None)
 
 
-def segment_sum_record(cell, vals, num_cells: int) -> dict:
+def point_sources_record(ge, x, gamma) -> dict:
+    """Kernel 3 (fused point sources) on the γ a path builds: limbs equal
+    to the plain version's and between two launches, the image within
+    1e-10 of a float64 ``index_add_`` of the same terms."""
+    import torch
+    from ocean_torch.adjoint.cuda_psrc import (point_source_limbs,
+                                               point_source_limbs_plain)
+    from ocean_torch.ode.grideval import grid_coords, p2_patch_weights
+    from ocean_torch.ops.scatter import pow2_scale
+
+    Hy, Hx = ge.hg_shape
+    dev = x.device
+    pts = x.reshape(-1, 2).contiguous()
+    scale = pow2_scale(gamma.reshape(-1, 2))
+    r = (gamma.reshape(-1, 2) / scale).contiguous()
+    hk, lk = point_source_limbs(ge, pts, r)
+    hk2, lk2 = point_source_limbs(ge, pts, r)
+    torch.cuda.synchronize()
+    check(torch.equal(hk, hk2) and torch.equal(lk, lk2),
+          "point_sources: two launches differ")
+    hp, lp = point_source_limbs_plain(ge, pts, r)
+    check(torch.equal(hk, hp) and torch.equal(lk, lp),
+          "point_sources: limbs differ from the plain version")
+
+    def image(hi, lo):                      # (Hy·Hx, 2) in units of γ
+        return (hi.double() * 2.0 ** -40 + lo.double() * 2.0 ** -80) * scale
+
+    img_k = image(hk, lk)
+    err = float((img_k - image(hp, lp)).abs().max())
+    check(err <= TOL, f"point_sources: max error {err} > {TOL}")
+    # against a plain float64 scatter of the same terms, whose own
+    # rounding grows with the ~10⁴ terms per node (reported, bounded at
+    # 1e-10 rather than 1e-12)
+    ix, iy, s, t = grid_coords(ge.locator, pts)
+    W = p2_patch_weights(s, t).reshape(-1, 9)
+    offs = torch.tensor([bb * Hx + a for bb in range(3) for a in range(3)],
+                        device=dev)
+    nodes = (((2 * iy) * Hx + 2 * ix)[:, None] + offs).reshape(-1)
+    vals = (W[:, :, None] * r[:, None, :]).reshape(-1, 2).contiguous()
+    img_f64 = torch.zeros(Hy * Hx, 2, dtype=torch.float64, device=dev)
+    img_f64.index_add_(0, nodes, vals)
+    err_f64 = float((img_k - img_f64 * scale).abs().max())
+    check(err_f64 <= 1e-10, f"point_sources: {err_f64} from the f64 sum")
+    ms = cuda_ms(lambda: point_source_limbs(ge, pts, r), 20)
+    plain = cuda_ms(lambda: point_source_limbs_plain(ge, pts, r), 3)
+    lib = cuda_ms(lambda: torch.zeros(Hy * Hx, 2, dtype=torch.float64,
+                                      device=dev).index_add_(0, nodes, vals),
+                  20)
+    M = pts.shape[0]
+    active = int((r != 0).any(dim=1).sum())
+    nbytes = 8 * (2 * M * 2) + 8 * 2 * Hy * Hx * 2
+    b, by = bound_ms(nbytes, OPS_PSRC_POINT * active)
+    print(f"point_sources: max_abs_err={err!r} vs_f64_sum={err_f64!r} "
+          f"M={M} active={active} ms={ms:.4f} plain_ms={plain:.4f} "
+          f"index_add_ms={lib:.4f} bound_ms={b:.4f}", flush=True)
+    return dict(name="point_sources", route="cuda",
+                source="ocean_torch/csrc/point_sources.cu",
+                replaces="ocean_jax/adjoint/pallas_psrc.py:226",
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
+                bound_by=by, library_ms=lib)
+
+
+def segment_sum_record(cell, vals, scale, num_cells: int) -> dict:
     """Kernel 5 (exact slice sums of the Ozaki segment sum) on the (M, 12)
     per-point terms: two launches and the plain version bit-identical,
     the recombined sums within 1e-12·scale of a float64 ``index_add_``."""
     import torch
     from ocean_torch.ops.psum_cuda import (ozaki_slice_sums,
                                            ozaki_slice_sums_plain)
-    from ocean_torch.ops.scatter import ozaki_segment_sum, pow2_scale
+    from ocean_torch.ops.scatter import ozaki_segment_sum
 
     S = num_cells
-    scale = pow2_scale(vals)
     ak = ozaki_slice_sums(cell, vals, scale, S)
     ak2 = ozaki_slice_sums(cell, vals, scale, S)
     torch.cuda.synchronize()
@@ -262,6 +331,103 @@ def segment_sum_record(cell, vals, num_cells: int) -> dict:
                 replaces="ocean_jax/ops/psum_pallas.py:113",
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
                 bound_by=by, library_ms=lib)
+
+
+def hard_inputs(ge32) -> None:
+    """The two scatter kernels on the small hard inputs of
+    ``tests/torch_kernel_cases.py``, each equal (``torch.equal``) to its
+    plain version on the card. The point sources run on the main path's
+    Nx=32 grid (``ge32``) and on an Nx=64 grid."""
+    import torch
+    import torch_kernel_cases as kernel_cases
+    from ocean_torch.adjoint import cuda_psrc
+    from ocean_torch.fem.spaces import make_space
+    from ocean_torch.mesh import structured
+    from ocean_torch.ode.grideval import make_grideval
+    from ocean_torch.ops import psum_cuda
+
+    dev = ge32.dof_to_node.device
+    ge64 = make_grideval(make_space(structured.rectangle_mesh(
+        (0.0, 0.0), (2.0, 2.0), 64, 64), dev))
+    for nx, ge in ((32, ge32), (64, ge64)):
+        for case in kernel_cases.PSRC_CASES:
+            pts, r = (a.to(dev) for a in
+                      kernel_cases.point_source_case(case, nx))
+            hk, lk = cuda_psrc.point_source_limbs(ge, pts, r)
+            hp, lp = cuda_psrc.point_source_limbs_plain(ge, pts, r)
+            check(torch.equal(hk, hp) and torch.equal(lk, lp),
+                  f"point_sources, hard input {case!r} at Nx={nx}: limbs "
+                  "differ from the plain version")
+    for case in kernel_cases.SEG_CASES:
+        ids, vals, scale, S = kernel_cases.segment_sum_case(case)
+        ids, vals, scale = ids.to(dev), vals.to(dev), scale.to(dev)
+        check(torch.equal(psum_cuda.ozaki_slice_sums(ids, vals, scale, S),
+                          psum_cuda.ozaki_slice_sums_plain(ids, vals, scale,
+                                                           S)),
+              f"segment_sum, hard input {case!r}: differs from the plain "
+              "version")
+    torch.cuda.synchronize()
+    print(f"hard inputs: point_sources {len(kernel_cases.PSRC_CASES)} cases "
+          f"× Nx 32 and 64, segment_sum "
+          f"{len(kernel_cases.SEG_CASES)} cases: all equal to the plain "
+          "versions", flush=True)
+
+
+def scatter_inputs(prob, fwd) -> dict:
+    """What the point-source stage of ``system.gd_step`` hands the two
+    scatter kernels' wrappers at the forward state ``fwd``, whatever
+    ``prob.psrc_method`` is: ``"point_sources"`` → (grid tables, points,
+    γ) of ``cuda_psrc.point_source_image`` and ``"segment_sum"`` → (ids,
+    values, scale, S) of ``psum_cuda.ozaki_slice_sums``."""
+    from ocean_torch import system
+    from ocean_torch.adjoint import point_sources
+    from ocean_torch.ops.scatter import pow2_scale
+
+    u, _ = prob.space.split(fwd.w)
+    grad_u = prob.projector.project(prob.space, u)
+    mu = system._adjoint_mu(prob, grad_u, fwd.x, fwd.u_values, fwd.mask,
+                            fwd.x_raw, fwd.kfail)
+    x, active = system._source_points(prob, fwd.x, fwd.mask, fwd.x_raw,
+                                      fwd.kfail)
+    common = (prob.space, u, x, mu, prob.u_d, active, prob.h, prob.center)
+    gamma = point_sources.fused_gamma(*common, fwd.u_values)
+    cell, vals = point_sources.point_source_terms(*common)
+    vals = vals.reshape(-1, 12)
+    return {"point_sources": (prob.grid, x, gamma),
+            "segment_sum": (cell, vals, pow2_scale(vals),
+                            prob.space.num_cells)}
+
+
+def scatter_times(label: str, got: dict, card: str) -> None:
+    """Times of the two scatter kernels on a path's inputs (``got`` from
+    ``scatter_inputs``), each first held to its plain version."""
+    import torch
+    from ocean_torch.adjoint.cuda_psrc import (point_source_limbs,
+                                               point_source_limbs_plain)
+    from ocean_torch.ops.psum_cuda import (ozaki_slice_sums,
+                                           ozaki_slice_sums_plain)
+    from ocean_torch.ops.scatter import pow2_scale
+
+    ge, x, gamma = got["point_sources"]
+    pts = x.reshape(-1, 2).contiguous()
+    gamma = gamma.reshape(-1, 2)
+    r = (gamma / pow2_scale(gamma)).contiguous()
+    hk, lk = point_source_limbs(ge, pts, r)
+    hp, lp = point_source_limbs_plain(ge, pts, r)
+    check(torch.equal(hk, hp) and torch.equal(lk, lp),
+          f"point_sources on {label}: limbs differ from the plain version")
+    ms = cuda_ms(lambda: point_source_limbs(ge, pts, r), 20)
+    print(f"point_sources on {label} inputs: ms={ms:.4f} "
+          f"active={int((r != 0).any(dim=1).sum())} of {pts.shape[0]} "
+          f"on {card}", flush=True)
+    del hp, lp
+    ids, vals, scale, S = got["segment_sum"]
+    check(torch.equal(ozaki_slice_sums(ids, vals, scale, S),
+                      ozaki_slice_sums_plain(ids, vals, scale, S)),
+          f"segment_sum on {label}: differs from the plain version")
+    ms = cuda_ms(lambda: ozaki_slice_sums(ids, vals, scale, S), 20)
+    print(f"segment_sum on {label} inputs: ms={ms:.4f} M={vals.shape[0]} "
+          f"on {card}", flush=True)
 
 
 def small_reference(name: str, cfg, control, lr) -> None:
@@ -342,7 +508,7 @@ def main() -> int:
         print("chip_smoke: ocean_torch/ not found beside this script",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT))
+    sys.path[:0] = [str(ROOT), str(ROOT / "tests")]   # the hard inputs
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -356,11 +522,6 @@ def main() -> int:
                                           primal_ode_steps_plain)
     from ocean_torch.ode.cuda_adjoint import (adjoint_ode_steps,
                                               adjoint_ode_steps_plain)
-    from ocean_torch.adjoint.cuda_psrc import (point_source_limbs,
-                                               point_source_limbs_plain)
-    from ocean_torch.adjoint.point_sources import point_source_terms
-    from ocean_torch.ops.scatter import pow2_scale
-    from ocean_torch.ode.grideval import grid_coords, p2_patch_weights
 
     dev = torch.device("cuda")
 
@@ -377,7 +538,7 @@ def main() -> int:
           f"({', '.join(sorted(logs)) or 'cached'})", flush=True)
     for name, text in sorted(logs.items()):
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  ptxas {name}: {line.strip()}")
 
     # --- 3. setup at the main path's configuration ------------------------
@@ -459,69 +620,20 @@ def main() -> int:
     print(f"adjoint_ode: max_abs_err={err!r} ms={ms:.4f} "
           f"plain_ms={plain:.4f} bound_ms={b:.4f}", flush=True)
 
-    # kernel 3: point sources, on the γ the main path builds
-    mu = torch.where(fwd.mask[:, None, None], 0.0, mk)
-    gamma = h * ((prob.u_d - fwd.u_values) + mu)
-    gamma = torch.where((~fwd.mask)[:, None, None], gamma, 0.0)
-    pts = fwd.x.reshape(-1, 2).contiguous()
-    scale = pow2_scale(gamma.reshape(-1, 2))
-    r = (gamma.reshape(-1, 2) / scale).contiguous()
-    hk, lk = point_source_limbs(ge, pts, r)
-    hk2, lk2 = point_source_limbs(ge, pts, r)
-    torch.cuda.synchronize()
-    check(torch.equal(hk, hk2) and torch.equal(lk, lk2),
-          "point_sources: two launches differ")
-    hp, lp = point_source_limbs_plain(ge, pts, r)
-
-    def image(hi, lo):                      # (Hy·Hx, 2) in units of γ
-        return (hi.double() * 2.0 ** -40 + lo.double() * 2.0 ** -80) * scale
-
-    img_k = image(hk, lk)
-    err = float((img_k - image(hp, lp)).abs().max())
-    check(err <= TOL, f"point_sources: max error {err} > {TOL}")
-    # against a plain float64 scatter of the same terms, whose own
-    # rounding grows with the ~10⁴ terms per node (reported, bounded at
-    # 1e-10 rather than 1e-12)
-    ix, iy, s, t = grid_coords(ge.locator, pts)
-    W = p2_patch_weights(s, t).reshape(-1, 9)
-    offs = torch.tensor([bb * Hx + a for bb in range(3) for a in range(3)],
-                        device=dev)
-    nodes = (((2 * iy) * Hx + 2 * ix)[:, None] + offs).reshape(-1)
-    vals = (W[:, :, None] * r[:, None, :]).reshape(-1, 2).contiguous()
-    img_f64 = torch.zeros(Hy * Hx, 2, dtype=torch.float64, device=dev)
-    img_f64.index_add_(0, nodes, vals)
-    err_f64 = float((img_k - img_f64 * scale).abs().max())
-    check(err_f64 <= 1e-10, f"point_sources: {err_f64} from the f64 sum")
-    ms = cuda_ms(lambda: point_source_limbs(ge, pts, r), 20)
-    plain = cuda_ms(lambda: point_source_limbs_plain(ge, pts, r), 3)
-    lib = cuda_ms(lambda: torch.zeros(Hy * Hx, 2, dtype=torch.float64,
-                                      device=dev).index_add_(0, nodes, vals),
-                  20)
-    M = pts.shape[0]
-    active = int((r != 0).any(dim=1).sum())
-    nbytes = 8 * (2 * M * 2) + 8 * 2 * Hy * Hx * 2
-    b, by = bound_ms(nbytes, OPS_PSRC_POINT * active)
-    records.append(dict(name="point_sources", route="cuda",
-                        source="ocean_torch/csrc/point_sources.cu",
-                        replaces="ocean_jax/adjoint/pallas_psrc.py:226",
-                        max_abs_err=err, ms=ms, plain_ms=plain,
-                        bound_ms=b, bound_by=by, library_ms=lib))
-    print(f"point_sources: max_abs_err={err!r} vs_f64_sum={err_f64!r} "
-          f"M={M} active={active} ms={ms:.4f} plain_ms={plain:.4f} "
-          f"index_add_ms={lib:.4f} bound_ms={b:.4f}", flush=True)
-    del xp, up, mp, hp, lp, W, vals, nodes
+    # kernels 3 and 5 take what path 1's point-source stage hands them
+    got1 = scatter_inputs(prob, fwd)
+    records.append(point_sources_record(*got1["point_sources"]))
+    del xp, up, mp
 
     # kernel 4: ∇u at all K·nt trajectory points of path 1
     records.append(p1_eval_record(ge, g_img, fwd.x))
 
     # kernel 5: the per-point terms of the non-fused point-source stage,
     # from path 1's trajectories and μ
-    cell, terms = point_source_terms(
-        prob.space, u, fwd.x, mu, prob.u_d,
-        (~fwd.mask)[:, None].expand(K, nt), h, prob.center)
-    records.append(segment_sum_record(cell, terms.reshape(-1, 12),
-                                      prob.space.num_cells))
-    del cell, terms
+    records.append(segment_sum_record(*got1["segment_sum"]))
+    del got1
+
+    hard_inputs(ge)
 
     # --- 5. small-input reference: card kernels vs CPU plain versions -----
     small = dict(ud_experiment="100_buoys", unit_square_resolution=8,
@@ -569,6 +681,7 @@ def main() -> int:
           "of max|b|")
     print(f"path 2 adjoint RHS, ozaki_pallas vs fused: {rel!r} of max|b|",
           flush=True)
+    scatter_times("path 2", scatter_inputs(prob2, fwd2), card)
 
     # --- 8. the grid= adjoint entry points (kernel 4) ----------------------
     kernels.reset_launch_counts()

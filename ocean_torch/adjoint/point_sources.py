@@ -58,6 +58,27 @@ def point_source_terms(space: TaylorHoodSpace, u: torch.Tensor,
     return cell, phi[:, :, None] * gamma[:, None, :]
 
 
+def fused_gamma(space: TaylorHoodSpace, u: torch.Tensor, x: torch.Tensor,
+                mu: torch.Tensor, u_d: torch.Tensor, active: torch.Tensor,
+                h: float, center: torch.Tensor,
+                u_values: torch.Tensor) -> torch.Tensor:
+    """Source magnitudes γ (K, nt, 2) of the "fused" method, from the
+    primal ODE's own evaluations ``u_values``; ``active`` (K, nt) bool
+    zeroes γ elsewhere."""
+    # a buoy whose FINAL evaluation fails is not masked: the primal
+    # stores u_values[nt−1] = 0 and x[nt−1] = center, and the
+    # reference re-evaluates at the stored center, getting u(center).
+    # Lanes at the center exactly take u(center); elsewhere u(x_k) IS
+    # u_values[k] (an unmasked buoy's points are all inside; in
+    # consistent mode an escaped buoy's pre-escape slots hold the real
+    # u(x_raw[t]) and its kfail+1 slot u(center)).
+    _, _, u_c = _u_center(space, u, center)
+    at_center = (x[..., 0] == center[0]) & (x[..., 1] == center[1])
+    u_eff = torch.where(at_center[..., None], u_c, u_values)
+    gamma = h * ((u_d - u_eff) + mu)
+    return torch.where(active[..., None], gamma, 0.0)
+
+
 def point_source_rhs(space: TaylorHoodSpace, u: torch.Tensor,
                      x: torch.Tensor, mu: torch.Tensor, u_d: torch.Tensor,
                      mask: torch.Tensor, h: float, center: torch.Tensor,
@@ -91,18 +112,8 @@ def point_source_rhs(space: TaylorHoodSpace, u: torch.Tensor,
             raise ValueError("psrc_method='fused' needs the half-grid "
                              "tables and the primal u_values")
         from .cuda_psrc import point_source_image
-        # a buoy whose FINAL evaluation fails is not masked: the primal
-        # stores u_values[nt−1] = 0 and x[nt−1] = center, and the
-        # reference re-evaluates at the stored center, getting u(center).
-        # Lanes at the center exactly take u(center); elsewhere u(x_k) IS
-        # u_values[k] (an unmasked buoy's points are all inside; in
-        # consistent mode an escaped buoy's pre-escape slots hold the real
-        # u(x_raw[t]) and its kfail+1 slot u(center)).
-        _, _, u_c = _u_center(space, u, center)
-        at_center = (x[..., 0] == center[0]) & (x[..., 1] == center[1])
-        u_eff = torch.where(at_center[..., None], u_c, u_values)
-        gamma = h * ((u_d - u_eff) + mu)
-        gamma = torch.where(active[..., None], gamma, 0.0)
+        gamma = fused_gamma(space, u, x, mu, u_d, active, h, center,
+                            u_values)
         b_vel = point_source_image(grid, x, gamma)
         return torch.cat([b_vel.reshape(-1), b_vel.new_zeros(n_p1)])
     if method != "scatter" and method not in _SEGMENT_SUMS:

@@ -6,6 +6,8 @@ the stream are passed as Python ints. Libraries are built at first use
 into ``ocean_torch/_build/`` (gitignored), named by a hash of the source
 and flags so an edited source rebuilds. All missing libraries are
 compiled at once, one ``nvcc`` process per source, in parallel.
+``csrc/warp_groups.cuh`` holds the warp grouping that the two scatter
+kernels (point sources, segment sum) share.
 
 ``--fmad=false`` is deliberate: no multiply-add is contracted into an
 FMA, so every double operation rounds as PyTorch's elementwise kernels
@@ -40,6 +42,8 @@ SOURCES = {
 }
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+
+WARP = 32                        # threads of a warp
 
 LAUNCHES = {name: 0 for name in SOURCES}
 _LIBS = {}

@@ -319,23 +319,30 @@ def _adjoint_mu(prob: OCPProblem, grad_u: torch.Tensor, x: torch.Tensor,
                              prob.h)
 
 
+def _source_points(prob: OCPProblem, x: torch.Tensor, mask: torch.Tensor,
+                   x_raw: torch.Tensor, kfail: torch.Tensor):
+    """Where the point sources sit, (K, nt, 2), and which (buoy, time)
+    slots carry one, (K, nt) bool. "consistent" mode keeps escaped buoys'
+    pre-escape sources at the raw positions, plus the u(center) quirk
+    term at kfail+1; otherwise an escaped buoy carries none."""
+    if prob.adjoint_mode != "consistent":
+        return x, (~mask)[:, None].expand(prob.K, prob.nt)
+    t = torch.arange(prob.nt, device=x.device)[None, :]
+    kf = kfail.to(torch.int64)[:, None]
+    pre = t <= kf - 1
+    quirk = t == kf + 1                         # u_values[kf+1] = u(center)
+    m = mask[:, None]
+    x = torch.where(m[..., None],
+                    torch.where(pre[..., None], x_raw, prob.center), x)
+    return x, torch.where(m, pre | quirk, True)
+
+
 def _adjoint_sources(prob: OCPProblem, u: torch.Tensor, mu: torch.Tensor,
                      x: torch.Tensor, u_values: torch.Tensor,
                      mask: torch.Tensor, x_raw: torch.Tensor,
                      kfail: torch.Tensor) -> torch.Tensor:
-    """The point-source RHS b from μ. "consistent" mode keeps escaped
-    buoys' pre-escape sources at the raw positions, plus the u(center)
-    quirk term at kfail+1."""
-    active_t = None
-    if prob.adjoint_mode == "consistent":
-        t = torch.arange(prob.nt, device=x.device)[None, :]
-        kf = kfail.to(torch.int64)[:, None]
-        pre = t <= kf - 1
-        quirk = t == kf + 1                     # u_values[kf+1] = u(center)
-        m = mask[:, None]
-        x = torch.where(m[..., None],
-                        torch.where(pre[..., None], x_raw, prob.center), x)
-        active_t = torch.where(m, pre | quirk, True)
+    """The point-source RHS b from μ."""
+    x, active_t = _source_points(prob, x, mask, x_raw, kfail)
     return point_source_rhs(prob.space, u, x, mu, prob.u_d, mask, prob.h,
                             prob.center, method=prob.psrc_method,
                             active_t=active_t, grid=prob.grid,

@@ -9,15 +9,18 @@ evaluate every double operation in the plain version's order, so
 trajectories, escape flags and μ are expected bit-identical; the bound
 asserted is 1e-12 absolute (failed/kfail exactly equal). The point-source
 limbs and the Ozaki slice sums are integer sums: identical across
-launches and to the plain version. The ∇u evaluation is one patch sum
-per point in the plain version's order: bit-identical, inside flags
-included.
+launches and to the plain version, on random inputs and on the hard
+inputs of ``tests/torch_kernel_cases.py`` (one square or segment, one per
+lane, points on nodes and the diagonal, ragged M, zero and negative
+weights, dropped ids, ±scale). The ∇u evaluation is one patch sum per
+point in the plain version's order: bit-identical, inside flags included.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import torch_kernel_cases as kernel_cases
 from ocean_torch import kernels
 from ocean_torch.mesh import structured
 from ocean_torch.fem.spaces import make_space
@@ -101,6 +104,20 @@ def test_point_source_kernel_matches_plain(dev, grid):
     assert torch.equal(hk, hp) and torch.equal(lk, lp)
 
 
+@pytest.mark.parametrize("nx", [16, 64])
+@pytest.mark.parametrize("case", kernel_cases.PSRC_CASES)
+def test_point_source_kernel_hard_inputs(dev, case, nx):
+    ge = make_grideval(make_space(structured.rectangle_mesh(
+        (0.0, 0.0), (2.0, 2.0), nx, nx), dev))
+    pts, r = (a.to(dev) for a in kernel_cases.point_source_case(case, nx))
+    hk, lk = point_source_limbs(ge, pts, r)
+    hk2, lk2 = point_source_limbs(ge, pts, r)
+    torch.cuda.synchronize()
+    hp, lp = point_source_limbs_plain(ge, pts, r)
+    assert torch.equal(hk, hk2) and torch.equal(lk, lk2)
+    assert torch.equal(hk, hp) and torch.equal(lk, lp)
+
+
 def test_p1_eval_kernel_matches_plain(dev, grid):
     st, ge = grid
     rng = np.random.default_rng(3)
@@ -132,6 +149,18 @@ def test_segment_sum_kernel_matches_plain(dev):
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["segment_sum"] == n0 + 2
     ap = ozaki_slice_sums_plain(ids, vals, scale, S)
+    assert torch.equal(ak, ak2) and torch.equal(ak, ap)
+
+
+@pytest.mark.parametrize("case", kernel_cases.SEG_CASES)
+def test_segment_sum_kernel_hard_inputs(dev, case):
+    ids, vals, scale, S = kernel_cases.segment_sum_case(case)
+    ids, vals, scale = ids.to(dev), vals.to(dev), scale.to(dev)
+    ak = ozaki_slice_sums(ids, vals, scale, S)
+    ak2 = ozaki_slice_sums(ids, vals, scale, S)
+    torch.cuda.synchronize()
+    ap = ozaki_slice_sums_plain(ids, vals, scale, S)
+    assert ak.shape == (S, 8, vals.shape[1])
     assert torch.equal(ak, ak2) and torch.equal(ak, ap)
 
 
