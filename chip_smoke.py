@@ -9,9 +9,10 @@ Phases, in order; any failure exits non-zero before the last line:
    power limit as nvidia-smi reports them;
 2. build: compile the five CUDA kernels from ``ocean_torch/csrc`` (one
    nvcc per source, in parallel) and print the seconds and what ptxas
-   says of registers, spills and shared memory (its "Used" line names
-   shared memory only where a kernel has some; no launch asks for
-   dynamic shared memory);
+   says of registers, spills and static shared memory (the adjoint ODE's
+   gather slots and the primal ODE's staging rows). The primal ODE also
+   asks for dynamic shared memory at launch, for the velocity image where
+   it fits; phase 4 prints those bytes;
 3. setup at the scalability configuration of ``bench.py::_build`` (unit
    square [0,2]², Nx=32, K=10⁴ buoys, nt=200, line search off, dense
    solver, chord Newton on the Stokes factor, CUDA ODE and point-source
@@ -19,13 +20,17 @@ Phases, in order; any failure exits non-zero before the last line:
    problem, and run one warm-up GD step whose state feeds phase 4;
 4. each kernel against its plain PyTorch version on the same inputs at
    the main path's shapes: maximum error against the stated tolerance,
-   kernel and plain times (CUDA events), the integer sums (point sources,
-   segment sum) bit-identical to the plain version and between two
-   launches, and the ``index_add_`` yardstick where one exists; then the
-   two scatter kernels on the small hard inputs of
-   ``tests/torch_kernel_cases.py`` (one square or segment, one per lane,
-   points on nodes and the diagonal, ragged M, zero and negative weights,
-   dropped ids, ±scale), each equal to the plain version;
+   kernel and plain times (CUDA events), the two ODE kernels and the
+   integer sums (point sources, segment sum) bit-identical
+   (``torch.equal``) to the plain version and between two launches, and
+   the ``index_add_`` yardstick where one exists; then the two ODE and
+   the two scatter kernels on the small hard inputs of
+   ``tests/torch_kernel_cases.py`` (ragged buoy tiles and time chunks,
+   buoys leaving at the first, the last or no step, the slack of every
+   edge and corner, grid lines and the diagonal, every ``vlimit`` window,
+   a spacing that is divided and an image too large for shared memory;
+   one square or segment, one per lane, ragged M, zero and negative
+   weights, dropped ids, ±scale), each equal to the plain version;
 5. small-input reference checks: one GD step of path 1 and one of path 2
    at Nx=8, K=100 through the kernels on the card against the plain
    versions on the CPU;
@@ -40,7 +45,9 @@ Phases, in order; any failure exits non-zero before the last line:
    GD step (primal ODE, adjoint ODE and segment sum must have run, the
    point-source kernel not), its median seconds, its adjoint RHS
    against the "fused" kernel's on the same forward state, and the two
-   scatter kernels' times on this state's inputs (shorter groups);
+   ODE and the two scatter kernels, each held to its plain version and
+   timed, on this state's inputs (a faster flow with frozen buoys,
+   ``vlimit`` windows, shorter groups);
 8. the parallel-prefix adjoint entry points with the grid tables
    (``solve_adjoint_ode(method="parallel", grid=)`` on path 1's state,
    ``solve_adjoint_ode_consistent(grid=)`` on path 2's): each launches
@@ -106,14 +113,25 @@ def gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+_BUSY = []
+
+
 def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds of ``fn()`` over ``reps`` launches after one
-    warm-up, timed with CUDA events."""
+    """Mean device milliseconds of ``fn()`` over ``reps`` launches after
+    one warm-up, timed with CUDA events. The launches are queued behind a
+    float32 matrix product of some 20 ms, so they run back to back on the
+    card even where the host needs longer to launch a kernel than the
+    card to run it (the ODE kernels take ~0.05 ms): the time is the
+    kernel's, not the wrapper's."""
     import torch
+    if not _BUSY:
+        a = torch.ones(8192, 8192, device="cuda")
+        _BUSY.extend([a, torch.empty_like(a)])
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.mm(_BUSY[0], _BUSY[0], out=_BUSY[1])
     start.record()
     for _ in range(reps):
         fn()
@@ -175,6 +193,64 @@ def print_stages(name: str, prob, f, lr) -> None:
     stages = stage_seconds(prob, f, lr)
     print(f"{name} stages (s, host clock, one GD step): "
           f"{json.dumps(stages)} sum {sum(stages.values())!r}", flush=True)
+
+
+def primal_ode_check(ge, u_img, x0, h, nt, label: str, card: str):
+    """Kernel 1 on one velocity image: x, u, ``failed`` and ``kfail`` equal
+    (``torch.equal``) to the plain version's and between two launches.
+    Returns (max error, kernel ms, plain ms, escaped buoys)."""
+    import torch
+    from ocean_torch.ode.cuda_ode import (primal_ode_steps,
+                                          primal_ode_steps_plain)
+
+    got = primal_ode_steps(ge, u_img, x0, h, nt)
+    again = primal_ode_steps(ge, u_img, x0, h, nt)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"primal_ode on {label}: two launches differ")
+    plain = primal_ode_steps_plain(ge, u_img, x0, h, nt)
+    for name, a, b in zip(("x", "u", "failed", "kfail"), got, plain):
+        check(torch.equal(a, b), f"primal_ode on {label}: {name} differs "
+              "from the plain version")
+    err = max(float((a - b).abs().max()) for a, b in zip(got[:2], plain[:2]))
+    ms = cuda_ms(lambda: primal_ode_steps(ge, u_img, x0, h, nt), 20)
+    plain_ms = cuda_ms(lambda: primal_ode_steps_plain(ge, u_img, x0, h, nt),
+                       3)
+    escaped = int(got[2].sum())
+    print(f"primal_ode on {label} inputs: equal to the plain version, "
+          f"max_abs_err={err!r} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"escaped={escaped} on {card}", flush=True)
+    return err, ms, plain_ms, escaped
+
+
+def adjoint_ode_check(ge, g_img, x, resid, vlimit, h, label: str, card: str):
+    """Kernel 2 on one set of trajectories: μ equal (``torch.equal``) to
+    the plain version's and between two launches, and finite. Returns
+    (max error, kernel ms, plain ms)."""
+    import torch
+    from ocean_torch.ode.cuda_adjoint import (adjoint_ode_steps,
+                                              adjoint_ode_steps_plain)
+
+    got = adjoint_ode_steps(ge, g_img, x, resid, vlimit, h)
+    again = adjoint_ode_steps(ge, g_img, x, resid, vlimit, h)
+    torch.cuda.synchronize()
+    check(torch.equal(got, again),
+          f"adjoint_ode on {label}: two launches differ")
+    plain = adjoint_ode_steps_plain(ge, g_img, x, resid, vlimit, h)
+    check(torch.equal(got, plain),
+          f"adjoint_ode on {label}: μ differs from the plain version")
+    check(bool(torch.isfinite(got).all()),
+          f"adjoint_ode on {label}: non-finite μ")
+    ms = cuda_ms(lambda: adjoint_ode_steps(ge, g_img, x, resid, vlimit, h),
+                 20)
+    plain_ms = cuda_ms(lambda: adjoint_ode_steps_plain(ge, g_img, x, resid,
+                                                       vlimit, h), 3)
+    err = float((got - plain).abs().max())
+    windows = int((vlimit < x.shape[1]).sum())
+    print(f"adjoint_ode on {label} inputs: equal to the plain version, "
+          f"max_abs_err={err!r} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"windows={windows} on {card}", flush=True)
+    return err, ms, plain_ms
 
 
 def p1_eval_record(ge, g_img, x) -> dict:
@@ -334,22 +410,47 @@ def segment_sum_record(cell, vals, scale, num_cells: int) -> dict:
 
 
 def hard_inputs(ge32) -> None:
-    """The two scatter kernels on the small hard inputs of
+    """The two ODE and the two scatter kernels on the small hard inputs of
     ``tests/torch_kernel_cases.py``, each equal (``torch.equal``) to its
-    plain version on the card. The point sources run on the main path's
-    Nx=32 grid (``ge32``) and on an Nx=64 grid."""
+    plain version on the card. The cases run on the main path's Nx=32
+    grid (``ge32``); the ODE cases that name a grid run on Nx=12 (a
+    spacing that is divided) and Nx=64 (an image too large for shared
+    memory), and the point sources on Nx=64 too."""
     import torch
     import torch_kernel_cases as kernel_cases
     from ocean_torch.adjoint import cuda_psrc
     from ocean_torch.fem.spaces import make_space
     from ocean_torch.mesh import structured
+    from ocean_torch.ode import cuda_adjoint, cuda_ode
     from ocean_torch.ode.grideval import make_grideval
     from ocean_torch.ops import psum_cuda
 
     dev = ge32.dof_to_node.device
-    ge64 = make_grideval(make_space(structured.rectangle_mesh(
-        (0.0, 0.0), (2.0, 2.0), 64, 64), dev))
-    for nx, ge in ((32, ge32), (64, ge64)):
+    grids = {32: ge32}
+    for nx in (12, 64):
+        grids[nx] = make_grideval(make_space(structured.rectangle_mesh(
+            (0.0, 0.0), (2.0, 2.0), nx, nx), dev))
+    for case in kernel_cases.PRIMAL_CASES:
+        ge = grids[kernel_cases.ode_case_nx(case, 32)]
+        u_img, x0, h, nt = kernel_cases.primal_ode_case(case, 32)
+        u_img, x0 = u_img.to(dev), x0.to(dev)
+        got = cuda_ode.primal_ode_steps(ge, u_img, x0, h, nt)
+        plain = cuda_ode.primal_ode_steps_plain(ge, u_img, x0, h, nt)
+        check(all(torch.equal(a, b) for a, b in zip(got, plain)),
+              f"primal_ode, hard input {case!r}: differs from the plain "
+              "version")
+    for case in kernel_cases.ADJOINT_CASES:
+        ge = grids[kernel_cases.ode_case_nx(case, 32)]
+        g_img, x, resid, vlimit, h = (
+            a.to(dev) if torch.is_tensor(a) else a
+            for a in kernel_cases.adjoint_ode_case(case, 32))
+        check(torch.equal(
+            cuda_adjoint.adjoint_ode_steps(ge, g_img, x, resid, vlimit, h),
+            cuda_adjoint.adjoint_ode_steps_plain(ge, g_img, x, resid,
+                                                 vlimit, h)),
+              f"adjoint_ode, hard input {case!r}: μ differs from the plain "
+              "version")
+    for nx, ge in ((32, ge32), (64, grids[64])):
         for case in kernel_cases.PSRC_CASES:
             pts, r = (a.to(dev) for a in
                       kernel_cases.point_source_case(case, nx))
@@ -367,7 +468,9 @@ def hard_inputs(ge32) -> None:
               f"segment_sum, hard input {case!r}: differs from the plain "
               "version")
     torch.cuda.synchronize()
-    print(f"hard inputs: point_sources {len(kernel_cases.PSRC_CASES)} cases "
+    print(f"hard inputs: primal_ode {len(kernel_cases.PRIMAL_CASES)} and "
+          f"adjoint_ode {len(kernel_cases.ADJOINT_CASES)} cases (Nx 32, 12 "
+          f"and 64), point_sources {len(kernel_cases.PSRC_CASES)} cases "
           f"× Nx 32 and 64, segment_sum "
           f"{len(kernel_cases.SEG_CASES)} cases: all equal to the plain "
           "versions", flush=True)
@@ -517,11 +620,8 @@ def main() -> int:
     from ocean_torch.pipelines.limits import ensure_ud
     from ocean_torch.ode import (solve_adjoint_ode, solve_adjoint_ode_cuda,
                                  solve_adjoint_ode_consistent)
+    from ocean_torch.ode import cuda_ode
     from ocean_torch.ode.grideval import velocity_to_grid, grad_to_grid
-    from ocean_torch.ode.cuda_ode import (primal_ode_steps,
-                                          primal_ode_steps_plain)
-    from ocean_torch.ode.cuda_adjoint import (adjoint_ode_steps,
-                                              adjoint_ode_steps_plain)
 
     dev = torch.device("cuda")
 
@@ -575,16 +675,8 @@ def main() -> int:
 
     # kernel 1: primal ODE
     u_img = velocity_to_grid(ge, u)
-    xk, uk, fk, kk = primal_ode_steps(ge, u_img, prob.x0, h, nt)
-    torch.cuda.synchronize()
-    xp, up, fp, kp = primal_ode_steps_plain(ge, u_img, prob.x0, h, nt)
-    err = max(float((xk - xp).abs().max()), float((uk - up).abs().max()))
-    check(torch.equal(fk, fp) and torch.equal(kk, kp),
-          "primal_ode: failed/kfail differ from the plain version")
-    check(err <= TOL, f"primal_ode: max error {err} > {TOL}")
-    ms = cuda_ms(lambda: primal_ode_steps(ge, u_img, prob.x0, h, nt), 20)
-    plain = cuda_ms(lambda: primal_ode_steps_plain(ge, u_img, prob.x0, h,
-                                                   nt), 3)
+    err, ms, plain, _ = primal_ode_check(ge, u_img, prob.x0, h, nt,
+                                         "path 1", card)
     nbytes = 8 * (K * 2 + Hy * Hx * 2 + 2 * K * nt * 2) + 4 * 2 * K
     b, by = bound_ms(nbytes, OPS_PRIMAL_STEP * K * (nt - 1))
     records.append(dict(name="primal_ode", route="cuda",
@@ -592,24 +684,17 @@ def main() -> int:
                         replaces="ocean_jax/ode/pallas_ode.py:480",
                         max_abs_err=err, ms=ms, plain_ms=plain,
                         bound_ms=b, bound_by=by, library_ms=None))
-    print(f"primal_ode: max_abs_err={err!r} escaped={int(fk.sum())} "
-          f"ms={ms:.4f} plain_ms={plain:.4f} bound_ms={b:.4f}", flush=True)
+    print(f"primal_ode: bound_ms={b:.4f} dynamic shared "
+          f"memory {cuda_ode.shared_bytes(ge)} B a block (staging rows and "
+          f"the {16 * Hy * Hx} B image)", flush=True)
 
     # kernel 2: adjoint ODE
     grad_u = prob.projector.project(prob.space, u)
     g_img = grad_to_grid(ge, grad_u)
     resid = (fwd.u_values - prob.u_d).contiguous()
     vlimit = torch.full((K,), nt, dtype=torch.int32, device=dev)
-    mk = adjoint_ode_steps(ge, g_img, fwd.x, resid, vlimit, h)
-    torch.cuda.synchronize()
-    mp = adjoint_ode_steps_plain(ge, g_img, fwd.x, resid, vlimit, h)
-    err = float((mk - mp).abs().max())
-    check(err <= TOL, f"adjoint_ode: max error {err} > {TOL}")
-    check(bool(torch.isfinite(mk).all()), "adjoint_ode: non-finite μ")
-    ms = cuda_ms(lambda: adjoint_ode_steps(ge, g_img, fwd.x, resid, vlimit,
-                                           h), 20)
-    plain = cuda_ms(lambda: adjoint_ode_steps_plain(ge, g_img, fwd.x, resid,
-                                                    vlimit, h), 3)
+    err, ms, plain = adjoint_ode_check(ge, g_img, fwd.x, resid, vlimit, h,
+                                       "path 1", card)
     nbytes = 8 * (3 * K * nt * 2 + Gy * Gx * 4) + 4 * K
     b, by = bound_ms(nbytes, OPS_ADJOINT_STEP * K * (nt - 1))
     records.append(dict(name="adjoint_ode", route="cuda",
@@ -617,13 +702,11 @@ def main() -> int:
                         replaces="ocean_jax/ode/pallas_adjoint.py:326",
                         max_abs_err=err, ms=ms, plain_ms=plain,
                         bound_ms=b, bound_by=by, library_ms=None))
-    print(f"adjoint_ode: max_abs_err={err!r} ms={ms:.4f} "
-          f"plain_ms={plain:.4f} bound_ms={b:.4f}", flush=True)
+    print(f"adjoint_ode: bound_ms={b:.4f}", flush=True)
 
     # kernels 3 and 5 take what path 1's point-source stage hands them
     got1 = scatter_inputs(prob, fwd)
     records.append(point_sources_record(*got1["point_sources"]))
-    del xp, up, mp
 
     # kernel 4: ∇u at all K·nt trajectory points of path 1
     records.append(p1_eval_record(ge, g_img, fwd.x))
@@ -682,6 +765,21 @@ def main() -> int:
     print(f"path 2 adjoint RHS, ozaki_pallas vs fused: {rel!r} of max|b|",
           flush=True)
     scatter_times("path 2", scatter_inputs(prob2, fwd2), card)
+    # the two ODE kernels on this state's inputs: the [4, 0] flow for the
+    # primal; the raw trajectories with their frozen buoys and the vlimit
+    # windows of the consistent adjoint
+    u2, _ = prob2.space.split(fwd2.w)
+    _, _, _, escaped2 = primal_ode_check(
+        prob2.grid, velocity_to_grid(prob2.grid, u2), prob2.x0, h, nt,
+        "path 2", card)
+    check(escaped2 == escaped, f"path 2: the kernel alone ejects {escaped2} "
+          f"buoys, the path {escaped}")
+    grad_u2 = prob2.projector.project(prob2.space, u2)
+    vlimit2 = torch.where(fwd2.mask, fwd2.kfail.to(torch.int64) - 1, nt)
+    adjoint_ode_check(prob2.grid, grad_to_grid(prob2.grid, grad_u2),
+                      fwd2.x_raw.contiguous(),
+                      (fwd2.u_values - prob2.u_d).contiguous(),
+                      vlimit2.to(torch.int32), h, "path 2", card)
 
     # --- 8. the grid= adjoint entry points (kernel 4) ----------------------
     kernels.reset_launch_counts()
@@ -695,8 +793,6 @@ def main() -> int:
                                     prob.u_d, fwd.mask, h)
     err_par = float((mu_par - mu_seq).abs().max())
     check(err_par <= TOL, f"parallel adjoint vs kernel: {err_par} > {TOL}")
-    u2, _ = prob2.space.split(fwd2.w)
-    grad_u2 = prob2.projector.project(prob2.space, u2)
     mu_con = solve_adjoint_ode_consistent(
         prob2.space, grad_u2, fwd2.x_raw, fwd2.u_values, prob2.u_d,
         fwd2.mask, fwd2.kfail, h, grid=prob2.grid)
@@ -704,7 +800,6 @@ def main() -> int:
     counts3 = kernels.launch_counts()
     check(counts3["p1_eval"] == 2,
           "solve_adjoint_ode_consistent(grid=) did not launch p1_eval once")
-    vlimit2 = torch.where(fwd2.mask, fwd2.kfail.to(torch.int64) - 1, nt)
     mu_win = solve_adjoint_ode_cuda(
         prob2.grid, grad_u2, fwd2.x_raw, fwd2.u_values, prob2.u_d,
         torch.zeros_like(fwd2.mask), h, vlimit=vlimit2)

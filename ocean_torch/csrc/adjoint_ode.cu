@@ -15,74 +15,144 @@
 // Native float64 replaces the TPU's double-single pairs and one-hot MXU
 // row selection.
 //
-// Bound on the card: one thread per buoy runs a dependent 199-step chain
-// (latency-bound). The bytes it must move are x and u - u_d in and mu out,
-// K*nt*2*8 B each (48 MB at K=1e4, nt=200: ~14 us at 3.35 TB/s). The
-// buoy-major (K, nt, 2) layout makes each thread's reads strided across
-// the warp (16 B per thread per step); consecutive steps of one thread
-// share cache lines, so L1 absorbs most of the waste.
+// Bound on the card: the bytes. x and u - u_d come in and mu goes out,
+// K*nt*2*8 B each (96 MB at K=1e4, nt=200: ~29 us at 3.35 TB/s). Only two
+// things are sequential in time: the carry of the last in-domain grad_u
+// and the 2x2 affine mu update, about five dependent float64 operations
+// a step. Everything before them depends on x alone. So a block owns
+// kTile buoys and walks their time axis from the end in chunks of kChunk
+// steps, each chunk in two phases:
 //
-// Built with --fmad=false (see grid.cuh).
+//  * gather, all threads, one point each with time along the lanes: in
+//    the buoy-major (K, nt, 2) layout the consecutive steps of a buoy are
+//    contiguous, so a warp reads 512 contiguous bytes of x and of u - u_d
+//    as 16-byte loads. Each point is located and its 2x2 patch weighted as
+//    p1_eval.cu does (same helpers, same order of additions); grad_u, the
+//    inside flag and the residual go to shared memory, never to device
+//    memory;
+//  * chain, one lane per buoy: carry, window and mu update from shared
+//    memory, in the plain version's operation order. mu[t-1] overwrites
+//    the residual of t in place and is written out with time along the
+//    lanes by the thread that fills the same slot for the next chunk.
+//
+// A tile of 8 buoys by 16 steps is one point a thread and 6.7 KB of
+// shared memory a block: K = 1e4 gives 1,250 blocks, nine or ten on an SM
+// at once, so one block's chain runs while others gather (larger tiles
+// and longer chunks measured slower). Rows of a buoy in shared memory
+// have an odd stride in 16-byte units: the chain's lanes (one row each)
+// and the gather's lanes (one slot each) both reach distinct banks.
+//
+// Built with --fmad=false (see grid.cuh): mu is bit-identical to the
+// plain version.
 
 #include "grid.cuh"
 
-__global__ void adjoint_ode_kernel(const double* __restrict__ g_img,
-                                   const double* __restrict__ x,
-                                   const double* __restrict__ resid,
-                                   const int* __restrict__ vlimit,
-                                   double* __restrict__ mu, int K, int nt,
-                                   int Gx, Geom g, double h) {
-    int k = blockIdx.x * blockDim.x + threadIdx.x;
-    if (k >= K) return;
-    const double* xk = x + (size_t)k * nt * 2;
-    const double* rk = resid + (size_t)k * nt * 2;
-    double* mk = mu + (size_t)k * nt * 2;
-    mk[2 * (nt - 1)] = 0.0;
-    mk[2 * (nt - 1) + 1] = 0.0;
+// ocean_torch/ode/cuda_adjoint.py holds the same two numbers (TILE,
+// CHUNK) for the plain staged mirror of this kernel.
+constexpr int kTile = 8;       // buoys of a block
+constexpr int kChunk = 16;     // time steps of a chunk
+constexpr int kThreads = 128;
+constexpr int kStride = kChunk | 1;   // odd row stride, in slots
+constexpr int kSlots = kTile * kStride;
+static_assert(kTile <= kThreads, "one chain lane per buoy of the tile");
+
+__global__ void __launch_bounds__(kThreads)
+adjoint_ode_kernel(const double* __restrict__ g_img,
+                   const double2* __restrict__ x,
+                   const double2* __restrict__ resid,
+                   const int* __restrict__ vlimit, double2* __restrict__ mu,
+                   int K, int nt, int Gx, Geom g, double h) {
+    __shared__ double2 sA[kSlots];         // (g00, g01) of each slot
+    __shared__ double2 sB[kSlots];         // (g10, g11)
+    __shared__ double2 sR[kSlots];         // (u - u_d)[t], then mu[t-1]
+    __shared__ unsigned char sF[kSlots];   // inside flag
+
+    const int tid = threadIdx.x;
+    const int k0 = blockIdx.x * kTile;
+    const int nb = min(kTile, K - k0);     // buoys of this block
+    const int nchunks = (nt - 1 + kChunk - 1) / kChunk;
+
+    // state of the chain lanes (tid < nb), carried across the chunks
     double mu1 = 0.0, mu2 = 0.0;
-    double gc[4] = {0.0, 0.0, 0.0, 0.0};
-    const int vl = vlimit[k];
-    for (int kc = nt - 2; kc >= 0; --kc) {
-        const int t = kc + 1;
-        double px = xk[2 * t], py = xk[2 * t + 1];
-        bool inside = in_domain(g, px, py);
-        int ix, iy;
-        double s, tl;
-        locate(g, px, py, ix, iy, s, tl);
-        double W[4];
-        p1_weights(s, tl, W);
-        double ge[4];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-            double acc = 0.0;
-#pragma unroll
-            for (int b = 0; b < 2; ++b) {
-#pragma unroll
-                for (int a = 0; a < 2; ++a) {
-                    double term = W[2 * b + a] *
-                        __ldg(g_img + 4 * ((size_t)(iy + b) * Gx + ix + a) + c);
-                    acc = (b == 0 && a == 0) ? term : acc + term;
-                }
+    double g00 = 0.0, g01 = 0.0, g10 = 0.0, g11 = 0.0;
+    int vl = 0;
+    if (tid < nb) {
+        vl = vlimit[k0 + tid];
+        mu[(size_t)(k0 + tid) * nt + nt - 1] = make_double2(0.0, 0.0);
+    }
+
+    for (int c = 0; c <= nchunks; ++c) {
+        // slot j of a row holds time t_base + j; times below 1 (the ragged
+        // last chunk) stay empty
+        const int t_base = nt - (c + 1) * kChunk;
+        for (int idx = tid; idx < kTile * kChunk; idx += kThreads) {
+            const int b = idx / kChunk, j = idx - b * kChunk;
+            if (b >= nb) break;
+            const int slot = b * kStride + j;
+            const size_t row = (size_t)(k0 + b) * nt;
+            if (c > 0) {             // mu of the chunk before, from t_prev
+                const int t_prev = t_base + kChunk + j;
+                if (t_prev >= 1) mu[row + t_prev - 1] = sR[slot];
             }
-            ge[c] = acc;
-        }
-        if (inside) {
+            const int t = t_base + j;
+            if (c < nchunks && t >= 1) {
+                const double2 p = x[row + t];
+                sR[slot] = resid[row + t];
+                sF[slot] = in_domain(g, p.x, p.y);
+                int ix, iy;
+                double s, tl;
+                locate(g, p.x, p.y, ix, iy, s, tl);
+                double W[4];
+                p1_weights(s, tl, W);
+                double ge[4];
 #pragma unroll
-            for (int c = 0; c < 4; ++c) gc[c] = ge[c];
+                for (int cc = 0; cc < 4; ++cc) {
+                    double acc = 0.0;
+#pragma unroll
+                    for (int bb = 0; bb < 2; ++bb) {
+#pragma unroll
+                        for (int a = 0; a < 2; ++a) {
+                            double term = W[2 * bb + a] * __ldg(
+                                g_img + 4 * ((size_t)(iy + bb) * Gx + ix + a)
+                                + cc);
+                            acc = (bb == 0 && a == 0) ? term : acc + term;
+                        }
+                    }
+                    ge[cc] = acc;
+                }
+                sA[slot] = make_double2(ge[0], ge[1]);
+                sB[slot] = make_double2(ge[2], ge[3]);
+            }
         }
-        const bool win = t <= vl;
-        // gu = grad_u, components [g00, g01, g10, g11]; (grad_u^T d)_1 =
-        // g00 d1 + g10 d2, (grad_u^T d)_2 = g01 d1 + g11 d2
-        double g00 = win ? gc[0] : 0.0, g01 = win ? gc[1] : 0.0;
-        double g10 = win ? gc[2] : 0.0, g11 = win ? gc[3] : 0.0;
-        double d1 = rk[2 * t] - mu1;
-        double d2 = rk[2 * t + 1] - mu2;
-        double m1 = mu1 - h * (g00 * d1 + g10 * d2);
-        double m2 = mu2 - h * (g01 * d1 + g11 * d2);
-        mk[2 * kc] = m1;
-        mk[2 * kc + 1] = m2;
-        mu1 = m1;
-        mu2 = m2;
+        if (c == nchunks) break;
+        __syncthreads();
+        if (tid < nb) {
+            const int j_lo = t_base >= 1 ? 0 : 1 - t_base;
+#pragma unroll 4
+            for (int j = kChunk - 1; j >= j_lo; --j) {
+                const int slot = tid * kStride + j;
+                const double2 a = sA[slot], bq = sB[slot], r = sR[slot];
+                if (sF[slot]) {
+                    g00 = a.x;
+                    g01 = a.y;
+                    g10 = bq.x;
+                    g11 = bq.y;
+                }
+                const bool win = t_base + j <= vl;
+                // grad_u components [g00, g01, g10, g11]; (grad_u^T d)_1 =
+                // g00 d1 + g10 d2, (grad_u^T d)_2 = g01 d1 + g11 d2
+                const double w00 = win ? g00 : 0.0, w01 = win ? g01 : 0.0;
+                const double w10 = win ? g10 : 0.0, w11 = win ? g11 : 0.0;
+                const double d1 = r.x - mu1;
+                const double d2 = r.y - mu2;
+                const double m1 = mu1 - h * (w00 * d1 + w10 * d2);
+                const double m2 = mu2 - h * (w01 * d1 + w11 * d2);
+                sR[slot] = make_double2(m1, m2);
+                mu1 = m1;
+                mu2 = m2;
+            }
+        }
+        __syncthreads();
     }
 }
 
@@ -91,9 +161,9 @@ extern "C" int adjoint_ode_launch(const double* g_img, const double* x,
                                   double* mu, int K, int nt, int Gx, Geom g,
                                   double h, void* stream) {
     if (K <= 0) return 0;
-    const int threads = 64;
-    int blocks = (K + threads - 1) / threads;
-    adjoint_ode_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        g_img, x, resid, vlimit, mu, K, nt, Gx, g, h);
+    int blocks = (K + kTile - 1) / kTile;
+    adjoint_ode_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        g_img, (const double2*)x, (const double2*)resid, vlimit,
+        (double2*)mu, K, nt, Gx, g, h);
     return (int)cudaGetLastError();
 }

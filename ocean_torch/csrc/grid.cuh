@@ -18,6 +18,7 @@
 struct Geom {
     double ox, oy;              // origin
     double hx, hy;              // spacing
+    double inv_hx, inv_hy;      // 1/spacing where that is exact, else 0
     double xmin, ymin, xmax, ymax;           // extent (clamp box)
     double xmin_e, ymin_e, xmax_e, ymax_e;   // extent -/+ 1e-12 slack
     int nx, ny;                 // squares per axis
@@ -35,13 +36,24 @@ __device__ __forceinline__ double clampd(double v, double lo, double hi) {
     return r > hi ? hi : r;
 }
 
-// mesh/locate.py::_square_index, one axis: owning square index clamped to
-// [0, n-1] and the local coordinate f - i
-__device__ __forceinline__ void axis_coord(double p, double o, double hs,
-                                           int n, int& i, double& s) {
-    double f = (p - o) / hs;
-    double fl = floor(f);
-    i = (fl >= 0.0) ? (fl <= (double)(n - 1) ? (int)fl : n - 1) : 0;
+// mesh/locate.py::_square_index, one axis, first half: the coordinate
+// f = (p - o) / hs in units of squares. A spacing that is a power of two
+// has an exact reciprocal (inv != 0, set by kernels.py::geom), and
+// (p - o) * inv is then the same real number rounded once as (p - o) / hs:
+// the same bits without the division. Any other spacing is divided
+// (inv == 0).
+__device__ __forceinline__ double axis_f(double p, double o, double hs,
+                                         double inv) {
+    return (inv != 0.0) ? (p - o) * inv : (p - o) / hs;
+}
+
+// second half: owning square index floor(f) clamped to [0, n-1] and the
+// local coordinate f - i. One conversion rounds down and saturates (NaN
+// gives 0), then the clamp is on integers: the same index as
+// clamp(int(floor(f)), 0, n-1) for every f.
+__device__ __forceinline__ void axis_split(double f, int n, int& i,
+                                           double& s) {
+    i = max(0, min(__double2int_rd(f), n - 1));
     s = f - (double)i;
 }
 
@@ -51,8 +63,50 @@ __device__ __forceinline__ void locate(const Geom& g, double px, double py,
                                        double& t) {
     double cx = clampd(px, g.xmin, g.xmax);
     double cy = clampd(py, g.ymin, g.ymax);
-    axis_coord(cx, g.ox, g.hx, g.nx, ix, s);
-    axis_coord(cy, g.oy, g.hy, g.ny, iy, t);
+    axis_split(axis_f(cx, g.ox, g.hx, g.inv_hx), g.nx, ix, s);
+    axis_split(axis_f(cy, g.oy, g.hy, g.inv_hy), g.ny, iy, t);
+}
+
+// The same location with the shortest chain of dependent operations, for
+// a kernel whose time is that chain (the primal ODE: each step's position
+// comes from the step before). The clamp moves from the position to the
+// coordinate: a clamped position is exactly p, lo or hi, and f is a
+// function of it, so choosing between f(p), f(lo) and f(hi) gives the same
+// bits while the compares run beside the subtraction and the product
+// instead of before them. f(lo) and f(hi) do not depend on the point:
+// AxisEnds holds them, computed once before the time loop.
+struct AxisEnds {
+    double fx_lo, fx_hi, fy_lo, fy_hi;
+};
+
+__device__ __forceinline__ AxisEnds axis_ends(const Geom& g) {
+    AxisEnds e;
+    e.fx_lo = axis_f(g.xmin, g.ox, g.hx, g.inv_hx);
+    e.fx_hi = axis_f(g.xmax, g.ox, g.hx, g.inv_hx);
+    e.fy_lo = axis_f(g.ymin, g.oy, g.hy, g.inv_hy);
+    e.fy_hi = axis_f(g.ymax, g.oy, g.hy, g.inv_hy);
+    return e;
+}
+
+// f of clampd(p, lo, hi) for lo <= hi (an extent): both compares are of p
+// itself, since p < lo rules out p > hi
+__device__ __forceinline__ double axis_f_clamped(double p, double lo,
+                                                 double hi, double f_lo,
+                                                 double f_hi, double o,
+                                                 double hs, double inv) {
+    double f = axis_f(p, o, hs, inv);
+    f = (p < lo) ? f_lo : f;
+    return (p > hi) ? f_hi : f;
+}
+
+__device__ __forceinline__ void locate_short(const Geom& g,
+                                             const AxisEnds& e, double px,
+                                             double py, int& ix, int& iy,
+                                             double& s, double& t) {
+    axis_split(axis_f_clamped(px, g.xmin, g.xmax, e.fx_lo, e.fx_hi, g.ox,
+                              g.hx, g.inv_hx), g.nx, ix, s);
+    axis_split(axis_f_clamped(py, g.ymin, g.ymax, e.fy_lo, e.fy_hi, g.oy,
+                              g.hy, g.inv_hy), g.ny, iy, t);
 }
 
 __device__ __forceinline__ double vert(double l) { return l * (2.0 * l - 1.0); }

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -62,22 +63,65 @@ class Geom(ctypes.Structure):
     """ctypes mirror of ``struct Geom`` in ``csrc/grid.cuh``."""
 
     _fields_ = [(n, ctypes.c_double) for n in (
-        "ox", "oy", "hx", "hy", "xmin", "ymin", "xmax", "ymax",
-        "xmin_e", "ymin_e", "xmax_e", "ymax_e")] + [
+        "ox", "oy", "hx", "hy", "inv_hx", "inv_hy", "xmin", "ymin", "xmax",
+        "ymax", "xmin_e", "ymin_e", "xmax_e", "ymax_e")] + [
         ("nx", ctypes.c_int), ("ny", ctypes.c_int)]
+
+
+def exact_reciprocal(hs: float) -> float:
+    """1/hs where hs is a power of two whose reciprocal is a normal
+    float64, else 0.0. For such a spacing ``(p − o) · (1/hs)`` and
+    ``(p − o) / hs`` are the same real number rounded once, so the kernels
+    multiply; 0.0 tells them to divide."""
+    if not (math.isfinite(hs) and hs > 0.0):
+        return 0.0
+    mant, exp = math.frexp(hs)                  # hs = mant · 2^exp
+    # hs = 2^(exp−1) and 1/hs = 2^(1−exp), both normal (≥ 2^-1022)
+    if mant != 0.5 or not -1021 <= exp <= 1023:
+        return 0.0
+    return 1.0 / hs
+
+
+def axis_f(p: torch.Tensor, o: float, hs: float, inv: float):
+    """Plain mirror of ``csrc/grid.cuh::axis_f``: the coordinate of
+    positions ``p`` on one axis in units of squares, by the reciprocal
+    ``inv`` where it is not 0, else by a true division."""
+    return (p - o) * inv if inv != 0.0 else (p - o) / p.new_full((), hs)
+
+
+def axis_coord(p: torch.Tensor, o: float, hs: float, inv: float, n: int):
+    """Plain mirror of ``axis_f`` and ``axis_split`` of ``csrc/grid.cuh``:
+    square index clamped to [0, n−1] and local coordinate of clamped
+    positions ``p`` on one axis."""
+    f = axis_f(p, o, hs, inv)
+    i = torch.clamp(torch.floor(f).to(torch.int64), 0, n - 1)
+    return i, f - i.to(f.dtype)
+
+
+def axis_f_clamped(p: torch.Tensor, lo: float, hi: float, o: float,
+                   hs: float, inv: float):
+    """Plain mirror of ``csrc/grid.cuh::axis_f_clamped``: the coordinate
+    of ``clamp(p, lo, hi)`` with the clamp moved behind the arithmetic. A
+    clamped position is exactly p, lo or hi, so choosing between f(p),
+    f(lo) and f(hi) gives the bits of f(clamp(p))."""
+    ends = axis_f(p.new_tensor([lo, hi]), o, hs, inv)
+    f = torch.where(p < lo, ends[0], axis_f(p, o, hs, inv))
+    return torch.where(p > hi, ends[1], f)
 
 
 def geom(loc, eps: float) -> Geom:
     """Kernel geometry of a uniform ``mesh.locate.Locator``; the slack
     thresholds are computed here in Python floats exactly as the plain
-    ``in_domain`` computes them."""
+    ``in_domain`` computes them, and each spacing gets its reciprocal
+    where that is exact (``exact_reciprocal``)."""
     if loc.domain != "rect" or loc.diagonal != "right":
         raise NotImplementedError(
             "the CUDA kernels support uniform rectangles with the 'right' "
             "diagonal only")
     xmin, ymin, xmax, ymax = loc.extent
-    return Geom(loc.origin[0], loc.origin[1], loc.spacing[0],
-                loc.spacing[1], xmin, ymin, xmax, ymax,
+    hx, hy = loc.spacing
+    return Geom(loc.origin[0], loc.origin[1], hx, hy, exact_reciprocal(hx),
+                exact_reciprocal(hy), xmin, ymin, xmax, ymax,
                 xmin - eps, ymin - eps, xmax + eps, ymax + eps,
                 loc.grid_shape[0], loc.grid_shape[1])
 

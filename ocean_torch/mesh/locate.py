@@ -63,8 +63,14 @@ def _square_index(loc: Locator, px: torch.Tensor, py: torch.Tensor):
     """Owning square (ix, iy) and local coordinates (s, t) ∈ [0,1]² of
     already-clamped points (closed form on the uniform grid)."""
     x0, y0 = loc.origin
-    hx, hy = loc.spacing
     nx, ny = loc.grid_shape
+    # The spacings divide as 0-dim tensors on the points' device: by a
+    # Python scalar, PyTorch's CUDA kernel multiplies by the rounded
+    # reciprocal instead, which is the quotient only for a spacing that
+    # is a power of two. So the CPU, the card and the CUDA kernels
+    # (csrc/grid.cuh::axis_f) locate alike on every grid.
+    hx, hy = (torch.full((), hs, dtype=px.dtype, device=px.device)
+              for hs in loc.spacing)
     fx = (px - x0) / hx
     fy = (py - y0) / hy
     ix = torch.clamp(torch.floor(fx).to(torch.int64), 0, nx - 1)

@@ -4,13 +4,18 @@ on a machine with an NVIDIA Hopper GPU and nvcc:
 
     python -m pytest tests/test_torch_cuda.py -m cuda
 
-Tolerances: the kernels are compiled without FMA contraction and
-evaluate every double operation in the plain version's order, so
-trajectories, escape flags and μ are expected bit-identical; the bound
-asserted is 1e-12 absolute (failed/kfail exactly equal). The point-source
-limbs and the Ozaki slice sums are integer sums: identical across
-launches and to the plain version, on random inputs and on the hard
-inputs of ``tests/torch_kernel_cases.py`` (one square or segment, one per
+No tolerance: the kernels are compiled without FMA contraction and
+evaluate every double operation in the plain version's order (the primal
+ODE leaves out three terms that are ±0), so trajectories, velocities,
+escape flags and steps, and μ are bit-identical (``torch.equal``) to the
+plain version and between launches, on random inputs and on the ODE hard
+inputs of ``tests/torch_kernel_cases.py`` (ragged buoy tiles and time
+chunks, buoys leaving at the first, the last or no step, the slack of
+every edge and corner, grid lines and the diagonal, every ``vlimit``
+window, a spacing that is divided, an image too large for shared
+memory). The point-source limbs and the Ozaki slice sums are integer
+sums: identical across launches and to the plain version, on random
+inputs and on the scatter hard inputs (one square or segment, one per
 lane, points on nodes and the diagonal, ragged M, zero and negative
 weights, dropped ids, ±scale). The ∇u evaluation is one patch sum per
 point in the plain version's order: bit-identical, inside flags included.
@@ -66,8 +71,26 @@ def test_primal_kernel_matches_plain(dev, grid):
     xp, up, fp, kp = primal_ode_steps_plain(ge, u_img, x0, 0.005, 200)
     assert bool(fp.any())
     assert torch.equal(fk, fp) and torch.equal(kk, kp)
-    assert float((xk - xp).abs().max()) < 1e-12
-    assert float((uk - up).abs().max()) < 1e-12
+    assert torch.equal(xk, xp) and torch.equal(uk, up)
+
+
+def _grid_on(dev, nx):
+    return make_grideval(make_space(structured.rectangle_mesh(
+        (0.0, 0.0), (2.0, 2.0), nx, nx), dev))
+
+
+@pytest.mark.parametrize("case", kernel_cases.PRIMAL_CASES)
+def test_primal_kernel_hard_inputs(dev, case):
+    ge = _grid_on(dev, kernel_cases.ode_case_nx(case, 16))
+    u_img, x0, h, nt = kernel_cases.primal_ode_case(case, 16)
+    u_img, x0 = u_img.to(dev), x0.to(dev)
+    got = primal_ode_steps(ge, u_img, x0, h, nt)
+    again = primal_ode_steps(ge, u_img, x0, h, nt)
+    torch.cuda.synchronize()
+    plain = primal_ode_steps_plain(ge, u_img, x0, h, nt)
+    assert got[0].shape == (len(x0), nt, 2)
+    for a, b, c in zip(got, again, plain):
+        assert torch.equal(a, b) and torch.equal(a, c)
 
 
 def test_adjoint_kernel_matches_plain(dev, grid):
@@ -86,7 +109,21 @@ def test_adjoint_kernel_matches_plain(dev, grid):
     mk = adjoint_ode_steps(ge, g_img, x, resid, vlimit, 0.005)
     torch.cuda.synchronize()
     mp = adjoint_ode_steps_plain(ge, g_img, x, resid, vlimit, 0.005)
-    assert float((mk - mp).abs().max()) < 1e-12
+    assert torch.equal(mk, mp)
+
+
+@pytest.mark.parametrize("case", kernel_cases.ADJOINT_CASES)
+def test_adjoint_kernel_hard_inputs(dev, case):
+    ge = _grid_on(dev, kernel_cases.ode_case_nx(case, 16))
+    g_img, x, resid, vlimit, h = kernel_cases.adjoint_ode_case(case, 16)
+    g_img, x, resid, vlimit = (a.to(dev) for a in (g_img, x, resid, vlimit))
+    n0 = kernels.LAUNCHES["adjoint_ode"]
+    mk = adjoint_ode_steps(ge, g_img, x, resid, vlimit, h)
+    mk2 = adjoint_ode_steps(ge, g_img, x, resid, vlimit, h)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["adjoint_ode"] == n0 + 2
+    mp = adjoint_ode_steps_plain(ge, g_img, x, resid, vlimit, h)
+    assert torch.equal(mk, mk2) and torch.equal(mk, mp)
 
 
 def test_point_source_kernel_matches_plain(dev, grid):
@@ -162,6 +199,20 @@ def test_segment_sum_kernel_hard_inputs(dev, case):
     ap = ozaki_slice_sums_plain(ids, vals, scale, S)
     assert ak.shape == (S, 8, vals.shape[1])
     assert torch.equal(ak, ak2) and torch.equal(ak, ap)
+
+
+def test_plain_location_is_the_cpus(dev):
+    """On a grid whose spacing is no power of two (2/12) the plain
+    location on the card gives the CPU's squares and local coordinates
+    bit for bit: the spacing divides as a tensor, not as a Python scalar
+    (which the CUDA division kernel turns into a rounded reciprocal)."""
+    from ocean_torch.ode.grideval import grid_coords
+    rng = np.random.default_rng(5)
+    pts = torch.as_tensor(rng.uniform(-0.1, 2.1, (20_000, 2)))
+    on_cpu = grid_coords(_grid_on("cpu", 12).locator, pts)
+    on_card = grid_coords(_grid_on(dev, 12).locator, pts.to(dev))
+    for a, b in zip(on_cpu, on_card):
+        assert torch.equal(a, b.cpu())
 
 
 def test_wrappers_reject_mixed_devices(dev, grid):
