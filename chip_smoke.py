@@ -52,7 +52,31 @@ Phases, in order; any failure exits non-zero before the last line:
    (``solve_adjoint_ode(method="parallel", grid=)`` on path 1's state,
    ``solve_adjoint_ode_consistent(grid=)`` on path 2's): each launches
    the ∇u evaluation kernel once and matches the sequential adjoint
-   kernel.
+   kernel;
+9. small-input reference of the optimisation run: three driver
+   iterations with the Armijo line search at Nx=8, K=100 and on the
+   L-shape at resolution 8, kernels on the card against plain versions on
+   the CPU: equal ``inner_iterations`` sequences and LR, J to 1e-12;
+10. the gradient check on the card (``opt.grad_check.grad_test``) on the
+    L-shape at resolution 16 and on the square at Nx=8, K=100: the centred
+    finite-difference error against ⟨g, df⟩ per step size: the quotient
+    settled to 1e-6 and the adjoint within its consistency floor of it
+    (5e-3 relative, the JAX package's own bound);
+11. path 3, the flagship run: ``pipelines.limits.run`` at Nx=32, K=10⁴,
+    nt=200, Armijo on, fast paths, LR=5, 5 iterations, artifacts into a
+    temporary directory. Counts set to 0 before and read after (primal
+    ODE = forwards taken, adjoint ODE and point sources = iterations); J
+    strictly decreasing, the first J and probe count beside the JAX
+    package's TPU record, LR non-increasing, every artifact present,
+    ``q.npz`` reloads; prints
+    ``gd_iteration_seconds_10000_buoys_armijo``;
+12. path 4, the L-shape run: ``pipelines.ocp.run`` at resolution 50 (17.4k
+    mixed dofs), 3 analytic buoys, Armijo on, CUDA ODE and point-source
+    kernels, 3 iterations, with the same count and artifact checks;
+    prints ``lshape_res50_gd_iteration_seconds``;
+13. the five kernels at a real size on the L-shape: 10⁴ meshgrid seeds
+    inside the L on path 4's velocity and ∇u fields, each kernel equal to
+    its plain version and timed as in phase 4.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -144,6 +168,22 @@ def bound_ms(nbytes: float, nops: float):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = nops / PEAK_F64_FLOP_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def primal_bound(ge, K: int, nt: int):
+    """Least time of the primal ODE: x0 and the image in, x, u, failed and
+    kfail out, against the float64 operations of K·(nt−1) steps."""
+    Hy, Hx = ge.hg_shape
+    nbytes = 8 * (K * 2 + Hy * Hx * 2 + 2 * K * nt * 2) + 4 * 2 * K
+    return bound_ms(nbytes, OPS_PRIMAL_STEP * K * (nt - 1))
+
+
+def adjoint_bound(ge, K: int, nt: int):
+    """Least time of the adjoint ODE: x, u − u_d, the ∇u image and the
+    windows in, μ out."""
+    Gy, Gx = ge.vg_shape
+    nbytes = 8 * (3 * K * nt * 2 + Gy * Gx * 4) + 4 * K
+    return bound_ms(nbytes, OPS_ADJOINT_STEP * K * (nt - 1))
 
 
 def stage_seconds(prob, f, lr) -> dict:
@@ -253,9 +293,9 @@ def adjoint_ode_check(ge, g_img, x, resid, vlimit, h, label: str, card: str):
     return err, ms, plain_ms
 
 
-def p1_eval_record(ge, g_img, x) -> dict:
+def p1_eval_record(ge, g_img, x, label: str = "") -> dict:
     """Kernel 4 (∇u at every trajectory point) against its plain version:
-    values within TOL, inside flags identical."""
+    values and inside flags equal (``torch.equal``)."""
     import torch
     from ocean_torch.ode.cuda_eval import eval_p1_tensor_cuda
     from ocean_torch.ode.grideval import eval_p1_tensor_grid
@@ -267,13 +307,15 @@ def p1_eval_record(ge, g_img, x) -> dict:
           "version")
     err = float((vk - vp).abs().max())
     check(err <= TOL, f"p1_eval: max error {err} > {TOL}")
+    check(torch.equal(vk, vp), "p1_eval: values differ from the plain "
+          "version")
     ms = cuda_ms(lambda: eval_p1_tensor_cuda(ge, g_img, x), 20)
     plain = cuda_ms(lambda: eval_p1_tensor_grid(ge, g_img, x), 5)
     n = x.numel() // 2
     Gy, Gx = ge.vg_shape
     nbytes = 8 * (2 * n + 4 * Gy * Gx + 4 * n) + n
     b, by = bound_ms(nbytes, OPS_P1_EVAL_POINT * n)
-    print(f"p1_eval: max_abs_err={err!r} N={n} outside={int((~ik).sum())} "
+    print(f"p1_eval{label}: max_abs_err={err!r} N={n} outside={int((~ik).sum())} "
           f"ms={ms:.4f} plain_ms={plain:.4f} bound_ms={b:.4f}", flush=True)
     return dict(name="p1_eval", route="cuda",
                 source="ocean_torch/csrc/p1_eval.cu",
@@ -282,7 +324,7 @@ def p1_eval_record(ge, g_img, x) -> dict:
                 bound_by=by, library_ms=None)
 
 
-def point_sources_record(ge, x, gamma) -> dict:
+def point_sources_record(ge, x, gamma, label: str = "") -> dict:
     """Kernel 3 (fused point sources) on the γ a path builds: limbs equal
     to the plain version's and between two launches, the image within
     1e-10 of a float64 ``index_add_`` of the same terms."""
@@ -334,7 +376,7 @@ def point_sources_record(ge, x, gamma) -> dict:
     active = int((r != 0).any(dim=1).sum())
     nbytes = 8 * (2 * M * 2) + 8 * 2 * Hy * Hx * 2
     b, by = bound_ms(nbytes, OPS_PSRC_POINT * active)
-    print(f"point_sources: max_abs_err={err!r} vs_f64_sum={err_f64!r} "
+    print(f"point_sources{label}: max_abs_err={err!r} vs_f64_sum={err_f64!r} "
           f"M={M} active={active} ms={ms:.4f} plain_ms={plain:.4f} "
           f"index_add_ms={lib:.4f} bound_ms={b:.4f}", flush=True)
     return dict(name="point_sources", route="cuda",
@@ -344,7 +386,8 @@ def point_sources_record(ge, x, gamma) -> dict:
                 bound_by=by, library_ms=lib)
 
 
-def segment_sum_record(cell, vals, scale, num_cells: int) -> dict:
+def segment_sum_record(cell, vals, scale, num_cells: int,
+                       label: str = "") -> dict:
     """Kernel 5 (exact slice sums of the Ozaki segment sum) on the (M, 12)
     per-point terms: two launches and the plain version bit-identical,
     the recombined sums within 1e-12·scale of a float64 ``index_add_``."""
@@ -397,7 +440,7 @@ def segment_sum_record(cell, vals, scale, num_cells: int) -> dict:
     M = vals.shape[0]
     nbytes = 8 * (12 * M + M + 12 + 8 * 12 * S)
     b, by = bound_ms(nbytes, OPS_OZAKI_VALUE * 12 * M)
-    print(f"segment_sum: max_abs_err={err!r} (int64 slice sums) "
+    print(f"segment_sum{label}: max_abs_err={err!r} (int64 slice sums) "
           f"vs_exact={err_exact!r}·scale vs_index_add={err_f64!r}·scale "
           f"max_terms={int(n.max())} M={M} S={S} ms={ms:.4f} "
           f"plain_ms={plain:.4f} index_add_ms={lib:.4f} bound_ms={b:.4f}",
@@ -474,6 +517,294 @@ def hard_inputs(ge32) -> None:
           f"× Nx 32 and 64, segment_sum "
           f"{len(kernel_cases.SEG_CASES)} cases: all equal to the plain "
           "versions", flush=True)
+
+
+def lshape_hard_inputs(dev) -> None:
+    """All five kernels on the L-shape hard inputs of
+    ``tests/torch_kernel_cases.py``, each equal (``torch.equal``) to its
+    plain version on the card. The cases run at resolution 32; the ODE
+    cases that name a resolution run at 50 (the half-grid image just fits
+    in shared memory beside the staging rows) and 64 (it does not), the
+    point cases at 32 and 64."""
+    import numpy as np
+    import torch
+    import torch_kernel_cases as kernel_cases
+    from ocean_torch.adjoint import cuda_psrc
+    from ocean_torch.fem.spaces import make_space
+    from ocean_torch.mesh import locate_points, structured
+    from ocean_torch.ode import cuda_adjoint, cuda_eval, cuda_ode
+    from ocean_torch.ode.grideval import eval_p1_tensor_grid, make_grideval
+    from ocean_torch.ops import psum_cuda
+    from ocean_torch.ops.scatter import pow2_scale
+
+    spaces = {res: make_space(structured.l_shape_mesh(res), dev)
+              for res in (32, 50, 64)}
+    grids = {res: make_grideval(sp) for res, sp in spaces.items()}
+    for res in (50, 64):
+        Hy, Hx = grids[res].hg_shape
+        image = 16 * Hy * Hx
+        total = cuda_ode.shared_bytes(grids[res])
+        print(f"primal_ode on the L-shape at resolution {res}: image "
+              f"{image} B, dynamic shared memory {total} B a block of "
+              f"{cuda_ode.SHARED_LIMIT} B allowed: image in "
+              f"{'shared' if total > image else 'device'} memory",
+              flush=True)
+    check(cuda_ode.shared_bytes(grids[50]) == 52224 + 163216
+          and cuda_ode.shared_bytes(grids[64]) == 52224,
+          "primal_ode: shared-memory size rule on the L-shape")
+    for case in kernel_cases.LSHAPE_PRIMAL_CASES:
+        ge = grids[kernel_cases.lshape_case_res(case, 32)]
+        u_img, x0, h, nt = kernel_cases.lshape_primal_case(case, 32)
+        u_img, x0 = u_img.to(dev), x0.to(dev)
+        got = cuda_ode.primal_ode_steps(ge, u_img, x0, h, nt)
+        plain = cuda_ode.primal_ode_steps_plain(ge, u_img, x0, h, nt)
+        check(all(torch.equal(a, b) for a, b in zip(got, plain)),
+              f"primal_ode, L-shape hard input {case!r}: differs from the "
+              "plain version")
+        check(bool(got[2].any()), f"primal_ode, L-shape hard input "
+              f"{case!r}: no buoy left the domain")
+    for case in kernel_cases.LSHAPE_ADJOINT_CASES:
+        ge = grids[kernel_cases.lshape_case_res(case, 32)]
+        g_img, x, resid, vlimit, h = (
+            a.to(dev) if torch.is_tensor(a) else a
+            for a in kernel_cases.lshape_adjoint_case(case, 32))
+        check(torch.equal(
+            cuda_adjoint.adjoint_ode_steps(ge, g_img, x, resid, vlimit, h),
+            cuda_adjoint.adjoint_ode_steps_plain(ge, g_img, x, resid,
+                                                 vlimit, h)),
+              f"adjoint_ode, L-shape hard input {case!r}: μ differs from "
+              "the plain version")
+    rng = np.random.default_rng(43)
+    for res in (32, 64):
+        ge, sp = grids[res], spaces[res]
+        Gy, Gx = ge.vg_shape
+        g_img = torch.as_tensor(rng.standard_normal((Gy * Gx, 2, 2)),
+                                device=dev)
+        for case in kernel_cases.LSHAPE_POINT_CASES:
+            pts, r = (a.to(dev) for a in
+                      kernel_cases.lshape_point_case(case, res))
+            where = f"L-shape hard input {case!r} at resolution {res}"
+            hk, lk = cuda_psrc.point_source_limbs(ge, pts, r)
+            hp, lp = cuda_psrc.point_source_limbs_plain(ge, pts, r)
+            check(torch.equal(hk, hp) and torch.equal(lk, lp),
+                  f"point_sources, {where}: limbs differ from the plain "
+                  "version")
+            vk, ik = cuda_eval.eval_p1_tensor_cuda(ge, g_img, pts)
+            vp, ip = eval_p1_tensor_grid(ge, g_img, pts)
+            check(torch.equal(vk, vp) and torch.equal(ik, ip),
+                  f"p1_eval, {where}: differs from the plain version")
+            check(bool(ik.any()) and not bool(ik.all()),
+                  f"p1_eval, {where}: points on one side only")
+            # the segment sum takes the cells these points are located in
+            cell, _, _ = locate_points(sp.locator, pts)
+            vals = torch.as_tensor(
+                rng.standard_normal((pts.shape[0], 12)), device=dev)
+            scale = pow2_scale(vals)
+            check(torch.equal(
+                psum_cuda.ozaki_slice_sums(cell, vals, scale, sp.num_cells),
+                psum_cuda.ozaki_slice_sums_plain(cell, vals, scale,
+                                                 sp.num_cells)),
+                  f"segment_sum, {where}: differs from the plain version")
+    torch.cuda.synchronize()
+    n_pt = len(kernel_cases.LSHAPE_POINT_CASES)
+    print(f"L-shape hard inputs: primal_ode "
+          f"{len(kernel_cases.LSHAPE_PRIMAL_CASES)} and adjoint_ode "
+          f"{len(kernel_cases.LSHAPE_ADJOINT_CASES)} cases (resolutions 32, "
+          f"50 and 64), point_sources, p1_eval and segment_sum {n_pt} cases "
+          f"× resolutions 32 and 64: all equal to the plain versions",
+          flush=True)
+
+
+def small_reference_armijo(name: str, cfg, control, u_d=None, x0=None):
+    """Three driver iterations with the Armijo line search at a small size
+    through the kernels on the card against the plain versions on the
+    CPU: equal ``inner_iterations`` sequences, LR and exit, J to 1e-12
+    relative."""
+    from ocean_torch import system
+    from ocean_torch.opt.driver import run_gradient_descent
+
+    res = {}
+    for where in ("cpu", "cuda"):
+        p = system.build_problem(cfg, u_d=u_d, x0=x0, device=where)
+        res[where] = run_gradient_descent(cfg, p, control(p), verbose=False)
+    cpu, gpu = res["cpu"], res["cuda"]
+    check(gpu.inner_iterations == cpu.inner_iterations and gpu.lr == cpu.lr
+          and gpu.exit_reason == cpu.exit_reason,
+          f"{name}: card {gpu.inner_iterations}, LR {gpu.lr}, "
+          f"{gpu.exit_reason}; CPU {cpu.inner_iterations}, LR {cpu.lr}, "
+          f"{cpu.exit_reason}")
+    dj = max(abs(a - b) / abs(b) for a, b in zip(gpu.j_array, cpu.j_array))
+    check(len(gpu.j_array) == 3 and dj < 1e-12, f"{name}: J rel {dj}")
+    check(all(b < a for a, b in zip(cpu.j_array, cpu.j_array[1:])),
+          f"{name}: J does not decrease: {cpu.j_array}")
+    print(f"{name}: inner_iterations {gpu.inner_iterations} LR {gpu.lr!r} "
+          f"J {gpu.j_array!r} card vs CPU rel {dj!r}", flush=True)
+
+
+def gradient_check(name: str, cfg, control, u_d=None, x0=None) -> None:
+    """``opt.grad_check.grad_test`` on the card: the centred
+    finite-difference quotient of J along df = (0.1, 0.1) against the
+    adjoint's ⟨g, df⟩, per step size. Two checks: the quotient itself has
+    converged (two neighbouring step sizes agree to 1e-6 relative), and the
+    adjoint's value is within GRAD_FLOOR of it. The reference's adjoint is
+    not the discrete gradient (P1-projected ∇u, an O(h‖∇u‖) adjoint-ODE
+    consistency error), so the gap stays at its consistency floor however
+    small h is; GRAD_FLOOR is what the JAX package's own test holds it to
+    (``tests/test_coupled_gradient.py``, escape-free regime)."""
+    from ocean_torch import control as ctrl_mod, system
+    from ocean_torch.opt.grad_check import grad_test
+
+    prob = system.build_problem(cfg, u_d=u_d, x0=x0, device="cuda")
+    f = control(prob)
+    step = system.gd_step(prob, f, cfg.LR)
+    check(not bool(step.fwd.mask.any()), f"{name}: a buoy escaped")
+    df = system.fd_direction(prob)
+    gradj = float(ctrl_mod.boundary_inner(prob.bq, step.grad, df))
+    j0 = float(system.cost(prob, step.fwd.u_values, f.quad))
+    _, centred = grad_test(prob, f, df, j0, gradj, 0)
+    for approx, err, h in centred:
+        print(f"{name}: h={h:.0e} centred FD {approx!r} error {err!r} "
+              f"relative {err / abs(gradj)!r}", flush=True)
+    fd = [approx for approx, _, _ in centred]
+    settled = min(abs(a - b) / abs(b) for a, b in zip(fd, fd[1:]))
+    check(settled < 1e-6, f"{name}: the centred quotient has not settled: "
+          f"two neighbouring step sizes agree to {settled} at best")
+    best = min(err for _, err, _ in centred) / abs(gradj)
+    check(best < GRAD_FLOOR, f"{name}: smallest centred FD error {best} of "
+          f"|<g, df>| = {abs(gradj)}")
+    print(f"{name}: <g, df> = {gradj!r}, smallest centred FD error "
+          f"{best!r} relative (bound {GRAD_FLOOR}), quotient settled to "
+          f"{settled!r}", flush=True)
+
+
+GRAD_FLOOR = 5e-3
+
+ARTIFACTS = ("variables.txt", "timings.txt", "u_divergence.txt",
+             "J_array.npy", "checkpoints/q.npz", "checkpoints/q_history.npz",
+             "q_backup/q.npz", "paraview/velocity.npz",
+             "paraview/checkpoint/up.npz", "paraview/velocity.xdmf",
+             "paraview/pressure.xdmf")
+
+
+def check_run(name: str, result, prob, cfg, counts: dict, metric: str,
+              card: str) -> None:
+    """What paths 3 and 4 have in common: the launch counts that the
+    driver's records imply, a J that decreases, an LR that does not grow,
+    the artifacts, and the iteration metric."""
+    import numpy as np
+    import torch
+    from ocean_torch.io import checkpoint
+
+    n = result.iterations_run
+    check(n == cfg.num_steps and result.exit_reason == "num_steps",
+          f"{name}: ran {n} iterations, exit {result.exit_reason}")
+    # every probe accepted (none floored), so each accepted probe's forward
+    # state was reused: forwards = the first one + the probes
+    forwards = 1 + sum(result.inner_iterations)
+    want = {"primal_ode": forwards, "adjoint_ode": n, "point_sources": n,
+            "p1_eval": 0, "segment_sum": 0}
+    check(counts == want, f"{name}: launches {counts}, expected {want}")
+    j = result.j_array
+    check(all(np.isfinite(j)) and all(b < a for a, b in zip(j, j[1:])),
+          f"{name}: J not strictly decreasing: {j}")
+    check(result.lr <= cfg.LR and result.lr == cfg.LR * cfg.tau ** sum(
+        i - 1 for i in result.inner_iterations),
+        f"{name}: LR {result.lr} does not follow the probes "
+        f"{result.inner_iterations}")
+    check(result.last_fwd.newton.converged, f"{name}: Newton did not "
+          "converge")
+    out = Path(cfg.out_dir)
+    missing = [a for a in ARTIFACTS if not (out / a).is_file()]
+    check(not missing, f"{name}: artifacts missing: {missing}")
+    f_ck, lr_ck, it_ck = checkpoint.load_control(
+        str(out / "q_backup" / "q.npz"), prob.space, prob.bq)
+    check(torch.equal(f_ck.quad, result.f.quad)
+          and torch.equal(f_ck.p2, result.f.p2) and lr_ck == result.lr
+          and it_ck == n, f"{name}: q_backup/q.npz does not reload")
+    f_last, _, it_last = checkpoint.load_control(
+        str(out / "checkpoints" / "q.npz"), prob.space, prob.bq)
+    check(torch.equal(f_last.quad, result.f.quad) and it_last == n - 1,
+          f"{name}: checkpoints/q.npz does not reload")
+    check(np.array_equal(np.load(out / "J_array.npy"), np.asarray(j)),
+          f"{name}: J_array.npy differs")
+    steady = sorted(o + i for o, i in zip(result.outer_times[1:],
+                                          result.inner_times[1:]))
+    print(f"{name}: J={j!r} inner_iterations={result.inner_iterations} "
+          f"LR={result.lr!r} escaped={int(result.last_fwd.mask.sum())} "
+          f"newton_iters={result.last_fwd.newton.iterations} "
+          f"launches={counts}", flush=True)
+    print(f"{name} outer seconds {result.outer_times!r} inner seconds "
+          f"{result.inner_times!r}", flush=True)
+    print(f"{metric}: median {steady[len(steady) // 2]!r} (outer + inner "
+          f"of iterations 1-{n - 1}: {steady!r}) on {card}", flush=True)
+
+
+def lshape_real_size(prob4, w, records: list, card: str) -> None:
+    """The five kernels at a real size on the L-shape: 10⁴ meshgrid seeds
+    inside the L, nt=200, on path 4's velocity and ∇u fields. Each kernel
+    is held to its plain version and timed as in phase 4; the times go
+    into the kernels' records under ``lshape_*`` keys."""
+    import numpy as np
+    import torch
+    from ocean_torch import system
+    from ocean_torch.mesh.locate import in_domain
+    from ocean_torch.ode.grideval import grad_to_grid, velocity_to_grid
+
+    dev = prob4.device
+    ge, nt, h = prob4.grid, prob4.nt, prob4.h
+    gx, gy = np.meshgrid(np.linspace(0.02, 1.98, 116),
+                         np.linspace(0.02, 1.98, 116))
+    seeds = torch.as_tensor(np.stack([gx.ravel(), gy.ravel()], 1),
+                            device=dev)
+    seeds = seeds[in_domain(ge.locator, seeds)][:10000].contiguous()
+    K = seeds.shape[0]
+    check(K == 10000, f"L-shape seeds: {K}")
+    big = dataclasses.replace(
+        prob4, x0=seeds,
+        u_d=torch.zeros(K, nt, 2, dtype=torch.float64, device=dev))
+    u, _ = big.space.split(w)
+    ode = system._primal_ode(big, u)
+    # which way the buoys left: through a re-entrant edge means into the
+    # missing block x < 1, y > 1
+    kf = ode.kfail.to(torch.int64).clamp(max=nt - 1)
+    gone = ode.x_raw[torch.arange(K, device=dev), kf][ode.mask]
+    corner = int(((gone[:, 0] < 1.0) & (gone[:, 1] > 1.0)).sum())
+    print(f"L-shape at resolution 50, {K} seeds: {int(ode.mask.sum())} "
+          f"buoys leave, {corner} of them through the re-entrant edges",
+          flush=True)
+    extra = {}
+    label = " on the L-shape"
+    err, ms, plain, _ = primal_ode_check(ge, velocity_to_grid(ge, u), seeds,
+                                         h, nt, "L-shape", card)
+    b, by = primal_bound(ge, K, nt)
+    extra["primal_ode"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                               bound_ms=b, bound_by=by)
+    grad_u = big.projector.project(big.space, u)
+    g_img = grad_to_grid(ge, grad_u)
+    x_raw = ode.x_raw.contiguous()
+    vlimit = torch.full((K,), nt, dtype=torch.int32, device=dev)
+    err, ms, plain = adjoint_ode_check(
+        ge, g_img, x_raw, (ode.u_values - big.u_d).contiguous(), vlimit, h,
+        "L-shape", card)
+    b, by = adjoint_bound(ge, K, nt)
+    extra["adjoint_ode"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                bound_ms=b, bound_by=by)
+    fwd = system.ForwardState(w, ode.x, ode.u_values, ode.mask, None,
+                              ode.x_raw, ode.kfail)
+    got = scatter_inputs(big, fwd)
+    extra["point_sources"] = point_sources_record(*got["point_sources"],
+                                                  label)
+    # the raw positions keep the frozen buoys where they left, outside
+    extra["p1_eval"] = p1_eval_record(ge, g_img, x_raw, label)
+    extra["segment_sum"] = segment_sum_record(*got["segment_sum"], label)
+    for rec in records:
+        for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms"):
+            if key in extra[rec["name"]]:
+                rec["lshape_" + key] = extra[rec["name"]][key]
+    print("L-shape kernel times (ms, 10⁴ seeds, resolution 50) on "
+          f"{card}: " + json.dumps({r["name"]: r["lshape_ms"]
+                                    for r in records}), flush=True)
 
 
 def scatter_inputs(prob, fwd) -> dict:
@@ -677,8 +1008,7 @@ def main() -> int:
     u_img = velocity_to_grid(ge, u)
     err, ms, plain, _ = primal_ode_check(ge, u_img, prob.x0, h, nt,
                                          "path 1", card)
-    nbytes = 8 * (K * 2 + Hy * Hx * 2 + 2 * K * nt * 2) + 4 * 2 * K
-    b, by = bound_ms(nbytes, OPS_PRIMAL_STEP * K * (nt - 1))
+    b, by = primal_bound(ge, K, nt)
     records.append(dict(name="primal_ode", route="cuda",
                         source="ocean_torch/csrc/primal_ode.cu",
                         replaces="ocean_jax/ode/pallas_ode.py:480",
@@ -695,8 +1025,7 @@ def main() -> int:
     vlimit = torch.full((K,), nt, dtype=torch.int32, device=dev)
     err, ms, plain = adjoint_ode_check(ge, g_img, fwd.x, resid, vlimit, h,
                                        "path 1", card)
-    nbytes = 8 * (3 * K * nt * 2 + Gy * Gx * 4) + 4 * K
-    b, by = bound_ms(nbytes, OPS_ADJOINT_STEP * K * (nt - 1))
+    b, by = adjoint_bound(ge, K, nt)
     records.append(dict(name="adjoint_ode", route="cuda",
                         source="ocean_torch/csrc/adjoint_ode.cu",
                         replaces="ocean_jax/ode/pallas_adjoint.py:326",
@@ -717,6 +1046,7 @@ def main() -> int:
     del got1
 
     hard_inputs(ge)
+    lshape_hard_inputs(dev)
 
     # --- 5. small-input reference: card kernels vs CPU plain versions -----
     small = dict(ud_experiment="100_buoys", unit_square_resolution=8,
@@ -810,11 +1140,103 @@ def main() -> int:
           f"{float(mu_par.abs().max())!r} / {float(mu_con.abs().max())!r}, "
           f"launches={counts3}", flush=True)
 
+    # --- 9. small-input reference of the optimisation run -----------------
+    import tempfile
+    import numpy as np
+    from ocean_torch.pipelines import limits, ocp
+    from ocean_torch.pipelines.ud_construction import seed_positions
+
+    rng = np.random.default_rng(7)
+    ud_s = 0.1 + 0.02 * rng.standard_normal((100, 200, 2))
+    ud_s[..., 1] -= 0.1
+    armijo = dict(use_line_search=True, num_steps=3, ode_backend="pallas",
+                  psrc_method="fused")
+    cfg_sq = OCPConfig(ud_experiment="100_buoys", unit_square_resolution=8,
+                       newton_reuse_lu=True, **armijo)
+    cfg_l8 = OCPConfig(ud_experiment="3_buoys", L_shape=True,
+                       L_shape_resolution=8, **armijo)
+    small_reference_armijo("small Armijo reference, square (Nx=8, K=100)",
+                           cfg_sq, lambda p: system.initial_control(p, 4),
+                           ud_s, seed_positions(100))
+    small_reference_armijo("small Armijo reference, L-shape (resolution 8)",
+                           cfg_l8, lambda p: system.initial_control(p, 0))
+
+    # --- 10. the gradient check on the card -------------------------------
+    gradient_check("gradient check, L-shape (resolution 16)",
+                   dataclasses.replace(cfg_l8, L_shape_resolution=16),
+                   lambda p: system.initial_control(p, 0))
+    gradient_check("gradient check, square (Nx=8, K=100)", cfg_sq,
+                   lambda p: system.initial_control(p, 4), ud_s,
+                   seed_positions(100))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # --- 11. path 3: the flagship run through limits.run --------------
+        cfg3 = OCPConfig(ud_experiment="10000_buoys",
+                         unit_square_resolution=32, use_line_search=True,
+                         LR=5.0, num_steps=5,
+                         out_dir=str(Path(tmp) / "limits"))
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res3, prob3, _ = limits.run(
+            cfg3, fast_paths=True, verbose=False, device=dev,
+            ud_cache_dir=str(ROOT / "data" / "ud_torch"))
+        torch.cuda.synchronize()
+        counts_p3 = kernels.launch_counts()
+        print(f"path 3 (limits.run, K=10⁴, Armijo): {res3.iterations_run} "
+              f"iterations in {time.perf_counter() - t0:.2f} s with set-up "
+              "and artifacts", flush=True)
+        check(prob3.K == 10000 and prob3.newton_reuse_lu
+              and prob3.psrc_method == "fused"
+              and prob3.ode_backend == "pallas", "path 3: not the fast paths")
+        check_run("path 3", res3, prob3, cfg3, counts_p3,
+                  "gd_iteration_seconds_10000_buoys_armijo", card)
+        # the JAX package's record of this run on a TPU (double-single
+        # float32 arithmetic): results/reuse_soak/soak.json, flagship_10k
+        j_tpu, probes_tpu = 28.924004796784402, 12
+        dj3 = abs(res3.j_array[0] - j_tpu) / j_tpu
+        print(f"path 3: first J {res3.j_array[0]!r} beside the TPU record "
+              f"{j_tpu} (relative difference {dj3!r}), first "
+              f"inner_iterations {res3.inner_iterations[0]} beside "
+              f"{probes_tpu}", flush=True)
+        check(dj3 < 1e-6 and res3.inner_iterations[0] == probes_tpu,
+              "path 3: first J or probe count off the TPU record")
+
+        # --- 12. path 4: the L-shape run through ocp.run -------------------
+        cfg4 = OCPConfig(ud_experiment="3_buoys", L_shape=True,
+                         L_shape_resolution=50, use_line_search=True,
+                         ode_backend="pallas", psrc_method="fused",
+                         num_steps=3, out_dir=str(Path(tmp) / "ocp"))
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res4, prob4 = ocp.run(cfg4, verbose=False, device=dev)
+        torch.cuda.synchronize()
+        counts_p4 = kernels.launch_counts()
+        print(f"path 4 (ocp.run, L-shape resolution 50, ndof="
+              f"{prob4.space.ndof}): {res4.iterations_run} iterations in "
+              f"{time.perf_counter() - t0:.2f} s with set-up and artifacts",
+              flush=True)
+        check(prob4.K == 3, f"path 4: K = {prob4.K}")
+        check(not bool(res4.last_fwd.mask.any()), "path 4: a buoy is masked")
+        check_run("path 4", res4, prob4, cfg4, counts_p4,
+                  "lshape_res50_gd_iteration_seconds", card)
+        # the JAX package's record (float32 factors with refinement on a
+        # TPU): results/reuse_soak/soak.json, lshape_res50
+        j_tpu4 = 0.3233596950649691
+        dj4 = abs(res4.j_array[0] - j_tpu4) / j_tpu4
+        print(f"path 4: first J {res4.j_array[0]!r} beside the TPU record "
+              f"{j_tpu4} (relative difference {dj4!r})", flush=True)
+        check(dj4 < 1e-6, "path 4: first J off the TPU record")
+
+    # --- 13. the five kernels at a real size on the L-shape ---------------
+    lshape_real_size(prob4, res4.last_fwd.w, records, card)
+
     launches = {n: counts1[n] for n in PATH1}
     launches.update({n: counts2[n] for n in PATH2 if n not in PATH1})
     launches["p1_eval"] = counts3["p1_eval"]
     for rec in records:
         rec["launches"] = launches[rec["name"]]
+        rec["launches_path3"] = counts_p3[rec["name"]]
+        rec["launches_path4"] = counts_p4[rec["name"]]
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,7 +19,7 @@ import torch
 from ..fem.assemble import gather_sum
 from ..fem.spaces import TaylorHoodSpace
 from ..fem.interpolate import p2_basis
-from ..mesh.locate import locate_points
+from ..mesh.locate import in_domain, locate_points
 from ..ops.scatter import (binned_segment_sum, sorted_segment_sum,
                            ozaki_segment_sum)
 
@@ -77,6 +77,26 @@ def fused_gamma(space: TaylorHoodSpace, u: torch.Tensor, x: torch.Tensor,
     u_eff = torch.where(at_center[..., None], u_c, u_values)
     gamma = h * ((u_d - u_eff) + mu)
     return torch.where(active[..., None], gamma, 0.0)
+
+
+def recentred_slots(loc, x_raw: torch.Tensor, mask: torch.Tensor,
+                    kfail: torch.Tensor) -> torch.Tensor:
+    """The (buoy, time) slots (K, nt) bool whose stored position the
+    primal ODE overwrote with the domain center, from what the primal ODE
+    returns beside the positions: every slot of an escaped buoy
+    (``mask``; ``kfail`` < nt says the same), and the last slot of a buoy
+    whose final evaluation alone failed (``x_raw[:, nt−1]`` outside).
+
+    ``fused_gamma`` finds these slots by comparing the stored positions
+    with the center, as the reference does; that breaks silently if a
+    later transform perturbs the positions. This function does not look
+    at them. Nothing on a path calls it yet: the tests hold the two to
+    each other."""
+    nt = x_raw.shape[1]
+    last_out = ~in_domain(loc, x_raw[:, nt - 1])
+    t = torch.arange(nt, device=x_raw.device)[None, :]
+    escaped = mask | (kfail.to(torch.int64) < nt)
+    return escaped[:, None] | ((t == nt - 1) & last_out[:, None])
 
 
 def point_source_rhs(space: TaylorHoodSpace, u: torch.Tensor,

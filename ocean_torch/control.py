@@ -44,3 +44,8 @@ def constant(space: TaylorHoodSpace, bq: BoundaryQuad, vec) -> Control:
     v = np.asarray(vec, dtype=np.float64)
     return from_expression(space, bq,
                            lambda x: np.broadcast_to(v, (len(x), 2)))
+
+
+def boundary_inner(bq: BoundaryQuad, a: Control, b: Control) -> torch.Tensor:
+    """∫_{Γ₁} a·b ds: the reduced-gradient inner product."""
+    return torch.sum(bq.weights * torch.sum(a.quad * b.quad, dim=-1))

@@ -4,7 +4,9 @@ Everything the JAX side hands over (``u_d``, ``x0``, ``center``, the
 control's ``quad``/``p2``, a mixed state ``w``) arrives as array-likes —
 numpy arrays, or JAX arrays that numpy converts — and becomes float64
 tensors on the requested device, so both packages compute from identical
-inputs. This module imports neither JAX nor the JAX package.
+inputs. A ``Control`` of either package and a control checkpoint
+(``q.npz``) written by either are carried across too. This module imports
+neither JAX nor the JAX package.
 """
 
 from __future__ import annotations
@@ -22,11 +24,33 @@ def to_tensor(a, device="cpu", dtype=torch.float64) -> torch.Tensor:
                            device=resolve_device(device)).contiguous()
 
 
-def control(quad, p2, device="cpu") -> Control:
-    """A ``Control`` from the JAX control's ``quad`` and ``p2`` arrays."""
+def control(quad, p2=None, device="cpu") -> Control:
+    """A ``Control`` from the JAX control's ``quad`` and ``p2`` arrays, or
+    from a control object of either package (anything with ``quad`` and
+    ``p2`` attributes) as the only argument."""
+    if p2 is None:
+        quad, p2 = quad.quad, quad.p2
     return Control(to_tensor(quad, device), to_tensor(p2, device))
 
 
+def control_checkpoint(path: str, device="cpu"):
+    """(Control, lr or None, iteration or None) from a ``q.npz`` control
+    checkpoint written by either package (``io/checkpoint.py`` there and
+    here: keys ``quad``, ``p2`` and optionally ``lr``, ``iteration``)."""
+    with np.load(path) as data:
+        ctrl = control(data["quad"], data["p2"], device)
+        lr = float(data["lr"]) if "lr" in data else None
+        it = int(data["iteration"]) if "iteration" in data else None
+    return ctrl, lr, it
+
+
 def problem_data(u_d, x0, device="cpu"):
-    """(u_d (K, nt, 2), x0 (K, 2)) as float64 tensors."""
-    return to_tensor(u_d, device), to_tensor(x0, device)
+    """(u_d (K, nt, 2), x0 (K, 2)) as float64 tensors: stored measurements
+    on the square, or what the JAX package's ``lshape_ud`` returns on the
+    L-shape."""
+    u_d, x0 = to_tensor(u_d, device), to_tensor(x0, device)
+    if (u_d.ndim != 3 or u_d.shape[-1] != 2
+            or x0.shape != (u_d.shape[0], 2)):
+        raise ValueError(f"u_d {tuple(u_d.shape)} / x0 {tuple(x0.shape)}: "
+                         "expected (K, nt, 2) and (K, 2)")
+    return u_d, x0

@@ -56,12 +56,14 @@ constexpr int kStride = kChunk | 1;   // odd row stride, in slots
 constexpr int kSlots = kTile * kStride;
 static_assert(kTile <= kThreads, "one chain lane per buoy of the tile");
 
+// G: the geometry type, the domain of in_domain and locate (grid.cuh)
+template <class G>
 __global__ void __launch_bounds__(kThreads)
 adjoint_ode_kernel(const double* __restrict__ g_img,
                    const double2* __restrict__ x,
                    const double2* __restrict__ resid,
                    const int* __restrict__ vlimit, double2* __restrict__ mu,
-                   int K, int nt, int Gx, Geom g, double h) {
+                   int K, int nt, int Gx, G g, double h) {
     __shared__ double2 sA[kSlots];         // (g00, g01) of each slot
     __shared__ double2 sB[kSlots];         // (g10, g11)
     __shared__ double2 sR[kSlots];         // (u - u_d)[t], then mu[t-1]
@@ -162,8 +164,10 @@ extern "C" int adjoint_ode_launch(const double* g_img, const double* x,
                                   double h, void* stream) {
     if (K <= 0) return 0;
     int blocks = (K + kTile - 1) / kTile;
-    adjoint_ode_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        g_img, (const double2*)x, (const double2*)resid, vlimit,
-        (double2*)mu, K, nt, Gx, g, h);
-    return (int)cudaGetLastError();
+    return with_geom(g, [&](auto geom) {
+        adjoint_ode_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+            g_img, (const double2*)x, (const double2*)resid, vlimit,
+            (double2*)mu, K, nt, Gx, geom, h);
+        return (int)cudaGetLastError();
+    });
 }

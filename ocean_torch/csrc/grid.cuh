@@ -1,6 +1,14 @@
 // Shared device helpers of the grid kernels: point location on the
-// uniform structured grid ("right" diagonal) and the closed-form P2/P1
-// patch weights of ocean_torch/ode/grideval.py.
+// uniform structured grid ("right" diagonal) of a rectangle or of the
+// L-shape (a rectangle less its upper-left block), and the closed-form
+// P2/P1 patch weights of ocean_torch/ode/grideval.py.
+//
+// The domain is a template parameter of in_domain, locate, locate_short
+// and of every kernel: the geometry type G, RectGeom or LshapeGeom. A
+// launch function gets the whole Geom, chooses by Geom::lshape and hands
+// the kernel its own type (with_geom). The rectangle's kernels take the
+// struct they took before the L-shape came and hold no trace of its
+// tests or constants.
 //
 // Every expression is written in the order the plain PyTorch version
 // evaluates it (ocean_torch/mesh/locate.py, ocean_torch/ode/grideval.py)
@@ -13,9 +21,9 @@
 
 #include <cuda_runtime.h>
 
-// Geometry constants of a uniform rectangle grid; the ctypes mirror is
-// ocean_torch/kernels.py::Geom (same field order).
-struct Geom {
+// Geometry constants of a uniform rectangle grid.
+struct RectGeom {
+    static constexpr bool kLshape = false;
     double ox, oy;              // origin
     double hx, hy;              // spacing
     double inv_hx, inv_hy;      // 1/spacing where that is exact, else 0
@@ -24,10 +32,50 @@ struct Geom {
     int nx, ny;                 // squares per axis
 };
 
+// The L-shape: a uniform grid over the bounding box, less the upper-left
+// block.
+struct LshapeGeom {
+    static constexpr bool kLshape = true;
+    double ox, oy, hx, hy, inv_hx, inv_hy;
+    double xmin, ymin, xmax, ymax;
+    double xmin_e, ymin_e, xmax_e, ymax_e;
+    int nx, ny;
+    int lshape;                 // 1
+    // inner corner, its slack thresholds cx - 1e-12 and cy + 1e-12, and
+    // the height cy - hy/2 that points of the missing block (x < cx,
+    // y > cy) are located at
+    double cx, cy, cx_e, cy_e, y_proj;
+};
+
+// What the launch functions are handed: LshapeGeom's layout, which begins
+// with RectGeom's. The ctypes mirror is ocean_torch/kernels.py::Geom (same
+// field order).
+typedef LshapeGeom Geom;
+
+// Calls fn(g) with g the geometry of a's domain in its own type.
+template <class Fn>
+static inline int with_geom(const Geom& a, Fn fn) {
+    if (a.lshape) return fn(a);
+    RectGeom r;
+    r.ox = a.ox; r.oy = a.oy; r.hx = a.hx; r.hy = a.hy;
+    r.inv_hx = a.inv_hx; r.inv_hy = a.inv_hy;
+    r.xmin = a.xmin; r.ymin = a.ymin; r.xmax = a.xmax; r.ymax = a.ymax;
+    r.xmin_e = a.xmin_e; r.ymin_e = a.ymin_e;
+    r.xmax_e = a.xmax_e; r.ymax_e = a.ymax_e;
+    r.nx = a.nx; r.ny = a.ny;
+    return fn(r);
+}
+
 // mesh/locate.py::in_domain (boundary inclusive)
-__device__ __forceinline__ bool in_domain(const Geom& g, double x, double y) {
-    return (x >= g.xmin_e) && (x <= g.xmax_e) && (y >= g.ymin_e) &&
-           (y <= g.ymax_e);
+template <class G>
+__device__ __forceinline__ bool in_domain(const G& g, double x, double y) {
+    if constexpr (G::kLshape) {
+        return (x >= g.xmin_e) && (x <= g.xmax_e) && (y >= g.ymin_e) &&
+               (y <= g.ymax_e) && ((y <= g.cy_e) || (x >= g.cx_e));
+    } else {
+        return (x >= g.xmin_e) && (x <= g.xmax_e) && (y >= g.ymin_e) &&
+               (y <= g.ymax_e);
+    }
 }
 
 // torch.clamp(v, lo, hi): NaN propagates
@@ -57,14 +105,18 @@ __device__ __forceinline__ void axis_split(double f, int n, int& i,
     s = f - (double)i;
 }
 
-// clamp + locate: square (ix, iy) and local (s, t) of a raw position
-__device__ __forceinline__ void locate(const Geom& g, double px, double py,
+// clamp (+ project, mesh/locate.py::clamp_to_extent) + locate: square
+// (ix, iy) and local (s, t) of a raw position
+template <class G>
+__device__ __forceinline__ void locate(const G& g, double px, double py,
                                        int& ix, int& iy, double& s,
                                        double& t) {
-    double cx = clampd(px, g.xmin, g.xmax);
-    double cy = clampd(py, g.ymin, g.ymax);
-    axis_split(axis_f(cx, g.ox, g.hx, g.inv_hx), g.nx, ix, s);
-    axis_split(axis_f(cy, g.oy, g.hy, g.inv_hy), g.ny, iy, t);
+    double qx = clampd(px, g.xmin, g.xmax);
+    double qy = clampd(py, g.ymin, g.ymax);
+    if constexpr (G::kLshape)
+        qy = ((qx < g.cx) && (qy > g.cy)) ? g.y_proj : qy;
+    axis_split(axis_f(qx, g.ox, g.hx, g.inv_hx), g.nx, ix, s);
+    axis_split(axis_f(qy, g.oy, g.hy, g.inv_hy), g.ny, iy, t);
 }
 
 // The same location with the shortest chain of dependent operations, for
@@ -75,16 +127,28 @@ __device__ __forceinline__ void locate(const Geom& g, double px, double py,
 // bits while the compares run beside the subtraction and the product
 // instead of before them. f(lo) and f(hi) do not depend on the point:
 // AxisEnds holds them, computed once before the time loop.
+//
+// On the L-shape a point of the missing block is moved to y_proj, a third
+// constant, so its coordinate is f(y_proj), held beside the two ends. The
+// plain version tests the block on the clamped position, clamp(px) < cx
+// and clamp(py) > cy; since xmin < cx <= xmax and ymin <= cy < ymax
+// (kernels.py::geom checks) the raw position answers alike, NaN included,
+// and the test runs beside the arithmetic as the clamps do
+// (kernels.py::lshape_fy_short is the plain mirror).
 struct AxisEnds {
     double fx_lo, fx_hi, fy_lo, fy_hi;
+    double fy_proj;             // L-shape only
 };
 
-__device__ __forceinline__ AxisEnds axis_ends(const Geom& g) {
+template <class G>
+__device__ __forceinline__ AxisEnds axis_ends(const G& g) {
     AxisEnds e;
     e.fx_lo = axis_f(g.xmin, g.ox, g.hx, g.inv_hx);
     e.fx_hi = axis_f(g.xmax, g.ox, g.hx, g.inv_hx);
     e.fy_lo = axis_f(g.ymin, g.oy, g.hy, g.inv_hy);
     e.fy_hi = axis_f(g.ymax, g.oy, g.hy, g.inv_hy);
+    if constexpr (G::kLshape)
+        e.fy_proj = axis_f(g.y_proj, g.oy, g.hy, g.inv_hy);
     return e;
 }
 
@@ -99,14 +163,21 @@ __device__ __forceinline__ double axis_f_clamped(double p, double lo,
     return (p > hi) ? f_hi : f;
 }
 
-__device__ __forceinline__ void locate_short(const Geom& g,
-                                             const AxisEnds& e, double px,
-                                             double py, int& ix, int& iy,
-                                             double& s, double& t) {
+template <class G>
+__device__ __forceinline__ void locate_short(const G& g, const AxisEnds& e,
+                                             double px, double py, int& ix,
+                                             int& iy, double& s, double& t) {
     axis_split(axis_f_clamped(px, g.xmin, g.xmax, e.fx_lo, e.fx_hi, g.ox,
                               g.hx, g.inv_hx), g.nx, ix, s);
-    axis_split(axis_f_clamped(py, g.ymin, g.ymax, e.fy_lo, e.fy_hi, g.oy,
-                              g.hy, g.inv_hy), g.ny, iy, t);
+    if constexpr (G::kLshape) {
+        double fy = axis_f_clamped(py, g.ymin, g.ymax, e.fy_lo, e.fy_hi,
+                                   g.oy, g.hy, g.inv_hy);
+        fy = ((px < g.cx) && (py > g.cy)) ? e.fy_proj : fy;
+        axis_split(fy, g.ny, iy, t);
+    } else {
+        axis_split(axis_f_clamped(py, g.ymin, g.ymax, e.fy_lo, e.fy_hi, g.oy,
+                                  g.hy, g.inv_hy), g.ny, iy, t);
+    }
 }
 
 __device__ __forceinline__ double vert(double l) { return l * (2.0 * l - 1.0); }

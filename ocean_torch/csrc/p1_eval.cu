@@ -3,7 +3,7 @@
 // Replaces the Pallas TPU kernel
 // ocean_jax/ode/pallas_eval.py::_make_eval_kernel (launched by _run_eval,
 // wrapped by eval_p1_tensor_pallas). For each of N points: clamp and
-// locate on the uniform vertex grid, take the P1 weights of the 2x2
+// locate (on the L-shape: project) on the uniform vertex grid, take the P1 weights of the 2x2
 // vertex patch, and sum the patch of each of the 4 components of the
 // (Gy*Gx, 2, 2) vertex image, row b then column a, in the order of
 // ocean_torch/ode/grideval.py::eval_p1_tensor_grid. The float64
@@ -25,11 +25,13 @@
 
 #include "grid.cuh"
 
+// G: the geometry type, the domain of in_domain and locate (grid.cuh)
+template <class G>
 __global__ void p1_eval_kernel(const double* __restrict__ g_img,
                                const double2* __restrict__ pts,
                                double2* __restrict__ vals,
                                bool* __restrict__ inside, long long N, int Gx,
-                               Geom g) {
+                               G g) {
     for (long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
          n < N; n += (long long)gridDim.x * blockDim.x) {
         const double2 p = pts[n];
@@ -66,7 +68,9 @@ extern "C" int p1_eval_launch(const double* g_img, const double* pts,
     const int threads = 256;
     long long want = (N + threads - 1) / threads;
     int blocks = (int)(want < 65535 ? want : 65535);
-    p1_eval_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        g_img, (const double2*)pts, (double2*)vals, inside, N, Gx, g);
-    return (int)cudaGetLastError();
+    return with_geom(g, [&](auto geom) {
+        p1_eval_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+            g_img, (const double2*)pts, (double2*)vals, inside, N, Gx, geom);
+        return (int)cudaGetLastError();
+    });
 }

@@ -72,10 +72,14 @@
 
 typedef unsigned long long u64;
 
+// G: the geometry type, the domain of locate (grid.cuh); the squares of
+// the L-shape's missing block are never a key, since locate projects out
+// of them
+template <class G>
 __global__ void __launch_bounds__(THREADS)
 point_sources_kernel(const double* __restrict__ pts,
                      const double* __restrict__ r, u64* __restrict__ acc_hi,
-                     u64* __restrict__ acc_lo, long long M, int Hx, Geom g) {
+                     u64* __restrict__ acc_lo, long long M, int Hx, G g) {
     const int lane = threadIdx.x & 31;
     // the loop bound is uniform over the warp, so every lane reaches the
     // full-mask warp intrinsics below
@@ -166,7 +170,9 @@ extern "C" int point_sources_launch(const double* pts, const double* r,
     if (M <= 0) return 0;
     const long long want = (M + THREADS - 1) / THREADS;
     const int blocks = (int)(want < 65535 ? want : 65535);
-    point_sources_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-        pts, r, (u64*)acc_hi, (u64*)acc_lo, M, Hx, g);
-    return (int)cudaGetLastError();
+    return with_geom(g, [&](auto geom) {
+        point_sources_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+            pts, r, (u64*)acc_hi, (u64*)acc_lo, M, Hx, geom);
+        return (int)cudaGetLastError();
+    });
 }

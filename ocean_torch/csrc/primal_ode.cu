@@ -43,6 +43,15 @@
 //    with time along the lanes, kSteps*16 contiguous bytes a buoy
 //    (cuda_ode.py::staged_store_index is the index arithmetic).
 //
+// The domain (rectangle or L-shape) is a second template parameter beside
+// the image's place, the geometry type G of grid.cuh: four instantiations,
+// chosen by primal_ode_launch, and the rectangle's are the code they were
+// before the L-shape came. On the
+// L-shape the image covers the bounding box (101 x 101 nodes, 163,216 B,
+// at resolution 50: with the 52,224 B of staging rows just inside the
+// limit); the nodes of the missing block hold zeros and an in-domain
+// point never reads one with a weight other than 0.
+//
 // Built with --fmad=false (see grid.cuh): x, u, failed and kfail are
 // bit-identical to the plain version (a zero may differ in sign).
 
@@ -62,9 +71,9 @@ static_assert(32 % kSteps == 0, "a store instruction holds whole runs");
 
 // u(px, py) from the half-grid image: the six nodes of the owning triangle
 // in the row-major order of the 3x3 patch
-template <bool kSharedImage>
+template <bool kSharedImage, class G>
 __device__ __forceinline__ void velocity(const double2* __restrict__ img,
-                                         int Hx, const Geom& g,
+                                         int Hx, const G& g,
                                          const AxisEnds& ends, double px,
                                          double py, double& ux, double& uy) {
     int ix, iy;
@@ -93,13 +102,13 @@ __device__ __forceinline__ void velocity(const double2* __restrict__ img,
     }
 }
 
-template <bool kSharedImage>
+template <bool kSharedImage, class G>
 __global__ void __launch_bounds__(kThreads)
 primal_ode_kernel(const double2* __restrict__ u_img,
                   const double2* __restrict__ x0, double2* __restrict__ xs,
                   double2* __restrict__ us, int* __restrict__ failed_out,
                   int* __restrict__ kfail_out, int K, int nt, int Hx, int Hy,
-                  Geom g, double h) {
+                  G g, double h) {
     extern __shared__ double2 shared[];
     // staging rows of this warp: x and u of its 32 buoys, kSteps steps
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -162,11 +171,10 @@ primal_ode_kernel(const double2* __restrict__ u_img,
     }
 }
 
-extern "C" int primal_ode_launch(const double* u_img, const double* x0,
-                                 double* xs, double* us, int* failed,
-                                 int* kfail, int K, int nt, int Hx, Geom g,
-                                 double h, void* stream) {
-    if (K <= 0) return 0;
+template <class G>
+static int launch(const double* u_img, const double* x0, double* xs,
+                  double* us, int* failed, int* kfail, int K, int nt, int Hx,
+                  G g, double h, void* stream) {
     const int Hy = 2 * g.ny + 1;
     const int blocks = (K + kThreads - 1) / kThreads;
     // the image goes to shared memory where it fits beside the staging
@@ -175,8 +183,8 @@ extern "C" int primal_ode_launch(const double* u_img, const double* x0,
         kStageBytes + (size_t)Hx * Hy * sizeof(double2);
     const bool shared_image = with_image <= kSharedLimit;
     const size_t bytes = shared_image ? with_image : kStageBytes;
-    auto kernel = shared_image ? primal_ode_kernel<true>
-                               : primal_ode_kernel<false>;
+    auto kernel = shared_image ? primal_ode_kernel<true, G>
+                               : primal_ode_kernel<false, G>;
     if (bytes > 48 * 1024) {         // has to be asked for above 48 KB
         cudaError_t err = cudaFuncSetAttribute(
             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -186,4 +194,15 @@ extern "C" int primal_ode_launch(const double* u_img, const double* x0,
         (const double2*)u_img, (const double2*)x0, (double2*)xs,
         (double2*)us, failed, kfail, K, nt, Hx, Hy, g, h);
     return (int)cudaGetLastError();
+}
+
+extern "C" int primal_ode_launch(const double* u_img, const double* x0,
+                                 double* xs, double* us, int* failed,
+                                 int* kfail, int K, int nt, int Hx, Geom g,
+                                 double h, void* stream) {
+    if (K <= 0) return 0;
+    return with_geom(g, [&](auto geom) {
+        return launch(u_img, x0, xs, us, failed, kfail, K, nt, Hx, geom, h,
+                      stream);
+    });
 }

@@ -65,7 +65,9 @@ class Geom(ctypes.Structure):
     _fields_ = [(n, ctypes.c_double) for n in (
         "ox", "oy", "hx", "hy", "inv_hx", "inv_hy", "xmin", "ymin", "xmax",
         "ymax", "xmin_e", "ymin_e", "xmax_e", "ymax_e")] + [
-        ("nx", ctypes.c_int), ("ny", ctypes.c_int)]
+        ("nx", ctypes.c_int), ("ny", ctypes.c_int),
+        ("lshape", ctypes.c_int)] + [(n, ctypes.c_double) for n in (
+            "cx", "cy", "cx_e", "cy_e", "y_proj")]
 
 
 def exact_reciprocal(hs: float) -> float:
@@ -109,21 +111,45 @@ def axis_f_clamped(p: torch.Tensor, lo: float, hi: float, o: float,
     return torch.where(p > hi, ends[1], f)
 
 
+def lshape_fy_short(px: torch.Tensor, py: torch.Tensor, g: "Geom"):
+    """Plain mirror of the y half of ``csrc/grid.cuh::locate_short`` on
+    the L-shape: the y coordinate of the clamped and projected position,
+    from the raw one. The plain version tests the missing block on the
+    clamped position, ``clamp(px) < cx and clamp(py) > cy``; while
+    xmin < cx ≤ xmax and ymin ≤ cy < ymax (``geom`` checks) the raw
+    position answers alike, NaN included (every compare of a NaN is
+    false, and a clamped NaN stays NaN). A projected point sits at
+    ``y_proj`` exactly, so its coordinate is f(y_proj), a third constant
+    beside f(lo) and f(hi)."""
+    f = axis_f_clamped(py, g.ymin, g.ymax, g.oy, g.hy, g.inv_hy)
+    f_proj = axis_f(py.new_tensor(g.y_proj), g.oy, g.hy, g.inv_hy)
+    return torch.where((px < g.cx) & (py > g.cy), f_proj, f)
+
+
 def geom(loc, eps: float) -> Geom:
-    """Kernel geometry of a uniform ``mesh.locate.Locator``; the slack
-    thresholds are computed here in Python floats exactly as the plain
-    ``in_domain`` computes them, and each spacing gets its reciprocal
-    where that is exact (``exact_reciprocal``)."""
-    if loc.domain != "rect" or loc.diagonal != "right":
+    """Kernel geometry of a uniform ``mesh.locate.Locator`` (rectangle or
+    L-shape); the slack thresholds and the projection height are
+    computed here in Python floats exactly as the plain ``in_domain`` and
+    ``clamp_to_extent`` compute them, and each spacing gets its
+    reciprocal where that is exact (``exact_reciprocal``)."""
+    if loc.domain not in ("rect", "lshape") or loc.diagonal != "right":
         raise NotImplementedError(
-            "the CUDA kernels support uniform rectangles with the 'right' "
-            "diagonal only")
+            "the CUDA kernels support uniform rectangles and the L-shape "
+            f"with the 'right' diagonal only (got {loc.domain!r}, "
+            f"{loc.diagonal!r})")
     xmin, ymin, xmax, ymax = loc.extent
     hx, hy = loc.spacing
+    from .mesh.locate import lshape_projection
+    cx, cy = loc.lshape_corner
+    lshape = loc.domain == "lshape"
+    if lshape and not (xmin < cx <= xmax and ymin <= cy < ymax):
+        # locate_short tests the missing block on the raw position
+        raise ValueError(f"L-shape corner {(cx, cy)} outside the extent")
     return Geom(loc.origin[0], loc.origin[1], hx, hy, exact_reciprocal(hx),
                 exact_reciprocal(hy), xmin, ymin, xmax, ymax,
                 xmin - eps, ymin - eps, xmax + eps, ymax + eps,
-                loc.grid_shape[0], loc.grid_shape[1])
+                loc.grid_shape[0], loc.grid_shape[1], int(lshape),
+                cx, cy, cx - eps, cy + eps, lshape_projection(loc))
 
 
 def nvcc() -> str:

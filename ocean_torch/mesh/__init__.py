@@ -2,6 +2,7 @@ from .structured import (
     Mesh2D,
     rectangle_mesh,
     unit_square_mesh,
+    l_shape_mesh,
     mark_boundary_facets,
 )
 from .locate import Locator, in_domain, locate_points
@@ -10,6 +11,7 @@ __all__ = [
     "Mesh2D",
     "rectangle_mesh",
     "unit_square_mesh",
+    "l_shape_mesh",
     "mark_boundary_facets",
     "Locator",
     "in_domain",

@@ -1,5 +1,5 @@
 """O(1) point-to-cell location on structured triangulations (port of the
-uniform branch of ``ocean_jax/mesh/locate.py``).
+uniform rectangle and L-shape branches of ``ocean_jax/mesh/locate.py``).
 
 The owning cell of a point is a closed-form index computation on the
 structured grid of squares, vectorized over any leading shape. Also the
@@ -33,13 +33,15 @@ class Locator:
     diagonal: str
     domain: str
     extent: Tuple[float, float, float, float]
+    lshape_corner: Tuple[float, float] = (1.0, 1.0)
 
     @classmethod
     def from_mesh(cls, mesh: Mesh2D, device) -> "Locator":
-        if mesh.domain != "rect" or mesh.diagonal != "right":
+        if mesh.domain not in ("rect", "lshape") or mesh.diagonal != "right":
             raise NotImplementedError(
-                "ocean_torch locates on uniform rectangles with the 'right' "
-                f"diagonal only (got {mesh.domain!r}, {mesh.diagonal!r})")
+                "ocean_torch locates on uniform rectangles and the L-shape "
+                "with the 'right' diagonal only (got "
+                f"{mesh.domain!r}, {mesh.diagonal!r})")
         v = mesh.cell_vertices()
         jac = np.stack([v[:, 1] - v[:, 0], v[:, 2] - v[:, 0]], axis=2)
         jinv = np.linalg.inv(jac)
@@ -56,6 +58,7 @@ class Locator:
             diagonal=mesh.diagonal,
             domain=mesh.domain,
             extent=mesh.extent,
+            lshape_corner=mesh.lshape_corner,
         )
 
 
@@ -84,15 +87,32 @@ def in_domain(loc: Locator, points: torch.Tensor) -> torch.Tensor:
     """Inside-domain predicate (boundary inclusive, ``_EPS`` slack)."""
     x, y = points[..., 0], points[..., 1]
     xmin, ymin, xmax, ymax = loc.extent
-    return ((x >= xmin - _EPS) & (x <= xmax + _EPS)
-            & (y >= ymin - _EPS) & (y <= ymax + _EPS))
+    ok = ((x >= xmin - _EPS) & (x <= xmax + _EPS)
+          & (y >= ymin - _EPS) & (y <= ymax + _EPS))
+    if loc.domain == "lshape":
+        cx, cy = loc.lshape_corner
+        ok = ok & ((y <= cy + _EPS) | (x >= cx - _EPS))
+    return ok
+
+
+def lshape_projection(loc: Locator) -> float:
+    """The y that points of the L-shape's missing block are located at:
+    half a square below the inner corner."""
+    return loc.lshape_corner[1] - 0.5 * loc.spacing[1]
 
 
 def clamp_to_extent(loc: Locator, points: torch.Tensor):
-    """Points clamped into the domain's bounding box: (px, py)."""
+    """Points moved onto active squares: (px, py) clamped into the
+    domain's bounding box and, on the L-shape, points of the missing
+    upper-left block projected down into the lower rectangle (such lanes
+    are outside the domain; callers mask them)."""
     xmin, ymin, xmax, ymax = loc.extent
     px = torch.clamp(points[..., 0], xmin, xmax)
     py = torch.clamp(points[..., 1], ymin, ymax)
+    if loc.domain == "lshape":
+        cx, cy = loc.lshape_corner
+        in_block = (px < cx) & (py > cy)
+        py = torch.where(in_block, lshape_projection(loc), py)
     return px, py
 
 

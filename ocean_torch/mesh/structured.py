@@ -1,5 +1,5 @@
-"""Structured triangulations of rectangles (numpy copy of the square
-branch of ``ocean_jax/mesh/structured.py``).
+"""Structured triangulations of rectangle unions (numpy copy of the
+uniform square and L-shape branches of ``ocean_jax/mesh/structured.py``).
 
 The equivalent of ``dolfin.RectangleMesh`` / ``dolfin.UnitSquareMesh``:
 the mesh is a set of plain host arrays (vertices, cells, edges, boundary
@@ -8,8 +8,10 @@ square is split along dolfin's "right" diagonal (lower-left to
 upper-right) into two counter-clockwise triangles. Numbering is identical
 to the JAX package's.
 
-Only rectangles with the "right" diagonal are ported; the L-shape, pipe,
-graded and hole domains raise ``NotImplementedError``.
+The rectangle and the L-shape ``[0,2]x[0,1] ∪ [1,2]x[1,2]`` with the
+"right" diagonal are ported; the "left" diagonal raises
+``NotImplementedError`` and the pipe, graded and hole domains have no
+constructor here yet.
 """
 
 from __future__ import annotations
@@ -41,11 +43,12 @@ class Mesh2D:
     origin: Tuple[float, float]
     spacing: Tuple[float, float]
     grid_shape: Tuple[int, int]         # (nx, ny) squares
-    square_to_cell: np.ndarray          # (ny, nx, 2) int64
+    square_to_cell: np.ndarray          # (ny, nx, 2) int64; -1 = inactive
     diagonal: str
 
-    domain: str                          # "rect"
+    domain: str                          # "rect" | "lshape"
     extent: Tuple[float, float, float, float]   # xmin, ymin, xmax, ymax
+    lshape_corner: Tuple[float, float] = (1.0, 1.0)  # inner corner (x, y)
 
     @property
     def num_vertices(self) -> int:
@@ -64,14 +67,15 @@ class Mesh2D:
         return self.vertices[self.cells]
 
 
-def _triangulate(xs: np.ndarray, ys: np.ndarray, diagonal: str):
-    """Vertices/cells/square_to_cell of a full rectangle grid."""
+def _triangulate(active: np.ndarray, xs: np.ndarray, ys: np.ndarray,
+                 diagonal: str):
+    """Vertices/cells/square_to_cell from an active-square mask (ny, nx)
+    over the grid lines xs (nx+1,), ys (ny+1,)."""
     if diagonal != "right":
         raise NotImplementedError(
             f"ocean_torch meshes support the 'right' diagonal only, "
             f"got {diagonal!r}")
-    ny, nx = len(ys) - 1, len(xs) - 1
-    active = np.ones((ny, nx), dtype=bool)
+    ny, nx = active.shape
     used = np.zeros((ny + 1, nx + 1), dtype=bool)
     iy, ix = np.nonzero(active)
     for dy in (0, 1):
@@ -133,13 +137,8 @@ def _build_topology(vertices: np.ndarray, cells: np.ndarray):
     return edges, cell_edges, bf_vertices, b_cell, b_local, normals
 
 
-def rectangle_mesh(p0: Tuple[float, float], p1: Tuple[float, float],
-                   nx: int, ny: int, diagonal: str = "right") -> Mesh2D:
-    """Equivalent of ``dolfin.RectangleMesh(Point(*p0), Point(*p1), nx,
-    ny)``."""
-    xs = np.linspace(p0[0], p1[0], nx + 1)
-    ys = np.linspace(p0[1], p1[1], ny + 1)
-    vertices, cells, s2c = _triangulate(xs, ys, diagonal)
+def _finalize(vertices, cells, square_to_cell, origin, spacing, grid_shape,
+              diagonal, domain, extent, lshape_corner=(1.0, 1.0)) -> Mesh2D:
     v = vertices[cells]
     det = ((v[:, 1, 0] - v[:, 0, 0]) * (v[:, 2, 1] - v[:, 0, 1])
            - (v[:, 1, 1] - v[:, 0, 1]) * (v[:, 2, 0] - v[:, 0, 0]))
@@ -155,13 +154,58 @@ def rectangle_mesh(p0: Tuple[float, float], p1: Tuple[float, float],
         bf_cells=bf_c.astype(np.int64),
         bf_local=bf_l.astype(np.int64),
         bf_normals=bf_n,
+        origin=origin,
+        spacing=spacing,
+        grid_shape=grid_shape,
+        square_to_cell=square_to_cell,
+        diagonal=diagonal,
+        domain=domain,
+        extent=extent,
+        lshape_corner=lshape_corner,
+    )
+
+
+def rectangle_mesh(p0: Tuple[float, float], p1: Tuple[float, float],
+                   nx: int, ny: int, diagonal: str = "right") -> Mesh2D:
+    """Equivalent of ``dolfin.RectangleMesh(Point(*p0), Point(*p1), nx,
+    ny)``."""
+    xs = np.linspace(p0[0], p1[0], nx + 1)
+    ys = np.linspace(p0[1], p1[1], ny + 1)
+    active = np.ones((ny, nx), dtype=bool)
+    vertices, cells, s2c = _triangulate(active, xs, ys, diagonal)
+    return _finalize(
+        vertices, cells, s2c,
         origin=(p0[0], p0[1]),
         spacing=((p1[0] - p0[0]) / nx, (p1[1] - p0[1]) / ny),
         grid_shape=(nx, ny),
-        square_to_cell=s2c,
         diagonal=diagonal,
         domain="rect",
         extent=(p0[0], p0[1], p1[0], p1[1]),
+    )
+
+
+def l_shape_mesh(resolution: int = 50, diagonal: str = "right") -> Mesh2D:
+    """Structured triangulation of the L-shaped domain
+    ``[0,2]x[0,1] ∪ [1,2]x[1,2]``. ``resolution`` is the number of squares
+    along the long (length-2) axis, so the mesh size is ``2/resolution``;
+    the squares of the missing upper-left block are inactive
+    (``square_to_cell`` −1) and own no vertex."""
+    n = resolution
+    xs = np.linspace(0.0, 2.0, n + 1)
+    ys = np.linspace(0.0, 2.0, n + 1)
+    cx = 0.5 * (xs[:-1] + xs[1:])[None, :]
+    cy = 0.5 * (ys[:-1] + ys[1:])[:, None]
+    active = np.broadcast_to((cy <= 1.0) | (cx >= 1.0), (n, n)).copy()
+    vertices, cells, s2c = _triangulate(active, xs, ys, diagonal)
+    return _finalize(
+        vertices, cells, s2c,
+        origin=(0.0, 0.0),
+        spacing=(2.0 / n, 2.0 / n),
+        grid_shape=(n, n),
+        diagonal=diagonal,
+        domain="lshape",
+        extent=(0.0, 0.0, 2.0, 2.0),
+        lshape_corner=(1.0, 1.0),
     )
 
 

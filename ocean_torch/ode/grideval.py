@@ -1,5 +1,6 @@
 """Table-free FE point evaluation on the structured P2 half-grid (port of
-the uniform branch of ``ocean_jax/ode/grideval.py``).
+the uniform rectangle and L-shape branches of
+``ocean_jax/ode/grideval.py``).
 
 Every scalar P2 dof of a structured triangulation sits on a node of the
 ``(2·ny+1) × (2·nx+1)`` half-grid, every P1 dof on the ``(ny+1) × (nx+1)``
@@ -39,7 +40,9 @@ class GridEval:
 
 
 def make_grideval(space: TaylorHoodSpace) -> GridEval:
-    """Build the dof→half-grid map (host-side, one-time setup)."""
+    """Build the dof→half-grid map (host-side, one-time setup). The grid
+    covers the bounding box: on the L-shape the nodes without a dof stay
+    zero in the images and no in-domain evaluation reads them."""
     loc = space.locator
     nx, ny = loc.grid_shape
     x0, y0 = loc.origin
@@ -83,7 +86,8 @@ def grad_to_grid(ge: GridEval, g: torch.Tensor) -> torch.Tensor:
 
 
 def grid_coords(loc: Locator, points: torch.Tensor):
-    """Owning square (ix, iy) and local coords (s, t) of clamped points."""
+    """Owning square (ix, iy) and local coords (s, t) of clamped (on the
+    L-shape: projected) points."""
     px, py = clamp_to_extent(loc, points)
     return _square_index(loc, px, py)
 

@@ -1,0 +1,199 @@
+"""Reduced-gradient-descent driver (port of the ``ocean_jax.opt.driver``
+module): the optimization loop of the reference with identical semantics:
+
+  * fresh buoy mask every iteration,
+  * optional Armijo backtracking line search whose LR is NOT reset between
+    outer iterations (monotone non-increasing across the run),
+  * control update f ← f − LR(αf − z),
+  * J recorded as J(old u_values, new f),
+  * convergence exit |ΔJ| < conv_crit only for i > 5,
+  * buoy-escape exit when Σ mask exceeds a threshold (K/2 for the OCP
+    pipeline, 10 for the limits pipeline),
+  * outer/inner wall-clock timings per iteration.
+
+PyTorch runs eagerly, so there is one loop. The JAX package has two, a
+per-stage one and a "staged" one over ``make_staged_pair`` programs; the
+staged programs and the ``staged`` switch exist to pack TPU dispatches
+into few device programs and have no counterpart here. Where the two JAX
+loops differ this one follows the per-stage loop: when the line search
+stops at its safety bound, the control is updated with the LR after the
+last decrement, not with the LR of the last probe.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import time
+from typing import Callable, List, Optional
+
+import numpy as np
+import torch
+
+from .. import control as ctrl_mod
+from .. import system as sys_mod
+from ..config import OCPConfig
+from ..control import Control
+from ..fem import assemble
+from . import grad_check as grad_check_mod
+
+
+@dataclasses.dataclass
+class GDRunResult:
+    j_array: List[float]
+    divs_u: List[float]
+    x_array: List[np.ndarray]
+    outer_times: List[float]
+    inner_times: List[float]
+    inner_iterations: List[int]
+    f: Control
+    lr: float
+    last_fwd: "sys_mod.ForwardState"
+    last_z: torch.Tensor
+    last_u_values: np.ndarray
+    exit_reason: str
+    iterations_run: int
+
+
+def _clock(device: torch.device) -> float:
+    """The host clock once the device has finished what was queued."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return time.perf_counter()
+
+
+def run_gradient_descent(cfg: OCPConfig, prob: "sys_mod.OCPProblem",
+                         f: Control,
+                         escape_threshold: Optional[float] = None,
+                         df: Optional[Control] = None,
+                         on_iteration: Optional[Callable] = None,
+                         grad_check_dir: Optional[str] = None,
+                         reuse_ls_forward: bool = True,
+                         verbose: bool = True) -> GDRunResult:
+    """Run up to cfg.num_steps GD iterations. ``escape_threshold`` defaults
+    to K/2 (OCP pipeline); the limits pipeline passes 10.
+
+    ``reuse_ls_forward=True`` (default): when the Armijo search accepts a
+    step, the accepted probe's forward state is the next iteration's
+    forward state (the updated control equals the probed control exactly
+    and the solve is deterministic), which skips one NS + ODE solve per
+    iteration with identical results. Pass False to reproduce the
+    reference's per-iteration outer/inner timing split.
+
+    A chord-Newton solve (``prob.newton_reuse_lu``) whose residual is not
+    finite diverged on its stale factors and is re-solved with fresh
+    factorizations. ``on_iteration(i, f, fwd, z, j_array)`` runs after
+    each iteration's records."""
+    if escape_threshold is None:
+        escape_threshold = prob.K / 2
+    if df is None:
+        df = sys_mod.fd_direction(prob)
+    dev = prob.device
+
+    lr = cfg.LR
+    j_array: List[float] = []
+    divs_u: List[float] = []
+    x_array: List[np.ndarray] = []
+    outer_times: List[float] = []
+    inner_times: List[float] = []
+    inner_iterations: List[int] = []
+    exit_reason = "num_steps"
+    last_fwd = last_z = None
+    it_run = 0
+    fwd_next = None
+
+    for i in range(cfg.num_steps):
+        if verbose:
+            print(f"Gradient descent iteration: {i}")
+        t_outer = _clock(dev)
+        fwd = (fwd_next if fwd_next is not None
+               else sys_mod._forward(prob, f.quad))
+        fwd_next = None
+        if (prob.newton_reuse_lu
+                and not math.isfinite(fwd.newton.residual_norm)):
+            if verbose:
+                print("fast-path Newton diverged; re-solving with "
+                      "fresh factorizations")
+            fwd = sys_mod._forward(
+                dataclasses.replace(prob, newton_reuse_lu=False), f.quad)
+        z, adj_ok = sys_mod._solve_adjoint_flagged(prob, fwd)
+        g = sys_mod.reduced_gradient(prob, f, z)
+        outer_times.append(_clock(dev) - t_outer)
+        if not fwd.newton.converged:
+            print(f"WARNING: Newton did not converge at iteration {i} "
+                  f"(residual {fwd.newton.residual_norm:.3e})")
+        if not adj_ok:
+            print(f"WARNING: adjoint refinement not converged at "
+                  f"iteration {i}")
+        last_fwd, last_z = fwd, z
+        x_array.append(fwd.x.cpu().numpy())
+        it_run = i + 1
+
+        # gradient check at i == 0
+        if cfg.grad_check and i == 0:
+            gradj0 = float(ctrl_mod.boundary_inner(prob.bq, g, df))
+            j0 = float(sys_mod.cost(prob, fwd.u_values, f.quad))
+            grad_check_mod.grad_test(prob, f, df, j0, gradj0, i,
+                                     out_dir=grad_check_dir)
+
+        # Armijo line search
+        t_inner = _clock(dev)
+        inner = 0
+        if cfg.use_line_search:
+            df = Control(-g.quad, -g.p2)
+            gradj = float(ctrl_mod.boundary_inner(prob.bq, g, df))
+            cond = -cfg.c_armijo * gradj
+            j_old = float(sys_mod.cost(prob, fwd.u_values, f.quad))
+            while True:
+                if verbose:
+                    print("line search at " + str(lr))
+                inner += 1
+                f_ls_quad = f.quad + lr * df.quad
+                fwd_ls = sys_mod._forward(prob, f_ls_quad)
+                j_new = float(sys_mod.cost(prob, fwd_ls.u_values, f_ls_quad))
+                if j_old - j_new >= lr * cond:
+                    if reuse_ls_forward:
+                        # accepted probe control == updated control exactly
+                        fwd_next = fwd_ls
+                    break
+                new_lr = max(cfg.tau * lr, cfg.LR_MIN)
+                if new_lr == lr:
+                    # floored at LR_MIN: re-probing is the identical solve;
+                    # accept after the one failed probe
+                    if verbose:
+                        print("line search floored at LR_MIN; accepting")
+                    break
+                lr = new_lr
+                if inner >= cfg.max_line_search_iters:
+                    if verbose:
+                        print("line search hit safety bound; accepting")
+                    break
+        inner_times.append(_clock(dev) - t_inner)
+        inner_iterations.append(inner)
+
+        # control update + records
+        f = f.axpy(-lr, g)
+        j_array.append(float(sys_mod.cost(prob, fwd.u_values, f.quad)))
+        u, _ = prob.space.split(fwd.w)
+        divs_u.append(float(assemble.divergence_l2(prob.space, u)))
+
+        if on_iteration is not None:
+            on_iteration(i, f, fwd, z, j_array)
+
+        # exits
+        if i > 5 and abs(j_array[i] - j_array[i - 1]) < cfg.conv_crit:
+            if verbose:
+                print("cost small enough")
+            exit_reason = "converged"
+            break
+        elif float(fwd.mask.sum()) > escape_threshold:
+            if verbose:
+                print("too many buoys out of domain .. exiting")
+            exit_reason = "buoy_escape"
+            break
+
+    last_u_values = (None if last_fwd is None
+                     else last_fwd.u_values.cpu().numpy())
+    return GDRunResult(j_array, divs_u, x_array, outer_times, inner_times,
+                       inner_iterations, f, lr, last_fwd, last_z,
+                       last_u_values, exit_reason, it_run)

@@ -1,3 +1,3 @@
-from . import ud_construction, limits
+from . import ud_construction, limits, ocp
 
-__all__ = ["ud_construction", "limits"]
+__all__ = ["ud_construction", "limits", "ocp"]

@@ -1,6 +1,7 @@
 """The coupled OCP system: problem container and the stage functions of
-one gradient-descent iteration (port of the dense, no-line-search branch
-of ``ocean_jax/system.py``, reference and consistent adjoint modes).
+the gradient-descent iteration (port of the dense branch of
+``ocean_jax/system.py``, reference and consistent adjoint modes, on the
+[0,2]² square and the L-shape).
 
     _solve_ns          primal Navier–Stokes chord Newton solve
     _forward           NS + primal buoy ODE
@@ -8,12 +9,15 @@ of ``ocean_jax/system.py``, reference and consistent adjoint modes).
     adjoint_rhs        ∇u projection + adjoint ODE + point sources
     _solve_adjoint_flagged   adjoint RHS + adjoint NS solve
     reduced_gradient   αf − z on Γ₁
-    gd_step            one full GD iteration without line search
+    gd_step            one full GD iteration, with or without the Armijo
+                       backtracking line search
+    gd_multi_step      n iterations of gd_step with the LR carried along
 
 PyTorch runs eagerly, so host loops and Python ``if`` on ``.item()``
-values replace ``lax.while_loop``/``lax.cond``. Branches the port does
-not have yet (L-shape domain, multigrid, continuation, Armijo line
-search, float32 chord sweeps) raise ``NotImplementedError``.
+values replace ``lax.while_loop``/``lax.scan``/``lax.cond``. Branches the
+port does not have yet (the "left" diagonal, graded, hole and pipe
+meshes, multigrid, continuation, float32 chord sweeps) raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -35,7 +39,7 @@ from .fem import (assemble, make_space, make_boundary_quad,
                   dirichlet_velocity_bc)
 from .fem.interpolate import boundary_eval_velocity
 from .fem.spaces import TaylorHoodSpace, BoundaryQuad
-from .mesh import rectangle_mesh, mark_boundary_facets
+from .mesh import rectangle_mesh, l_shape_mesh, mark_boundary_facets
 from .ode import (solve_primal_ode, solve_adjoint_ode,
                   solve_adjoint_ode_consistent, solve_primal_ode_cuda,
                   solve_adjoint_ode_cuda)
@@ -109,8 +113,9 @@ class GDStepResult(NamedTuple):
     fwd: ForwardState
     z: torch.Tensor
     grad: Control              # αf − z (pre-update)
-    gradj: float               # 0 without line search
-    inner_iterations: int
+    gradj: float               # ⟨g, −g⟩_Γ₁ with line search, else 0
+    inner_iterations: int      # line-search probes (the accepting one
+                               # counts), 0 without line search
     diverged: bool             # non-finite Newton residual or cost, or a
                                # failed adjoint solve
 
@@ -120,10 +125,17 @@ class GDStepResult(NamedTuple):
 # ---------------------------------------------------------------------------
 
 def _domain_setup(cfg: OCPConfig):
-    """Mesh, domain center and boundary predicates of the [0,2]² square."""
+    """Mesh, domain center and boundary predicates of the [0,2]² square
+    or, with ``cfg.L_shape``, of the L-shape (Γ₁ = {x=0} ∪ {y=2})."""
     if cfg.L_shape:
-        raise NotImplementedError("ocean_torch: the L-shape domain is not "
-                                  "ported yet")
+        mesh = l_shape_mesh(cfg.L_shape_resolution,
+                            diagonal=cfg.mesh_diagonal)
+        center = np.array([1.0, 0.5])
+        gamma1 = lambda x: ((np.abs(x[:, 0]) < _EPS)
+                            | (np.abs(2.0 - x[:, 1]) < _EPS))
+        gamma2 = lambda x: ((x[:, 0] > _EPS)
+                            & (np.abs(2.0 - x[:, 1]) > _EPS))
+        return mesh, center, gamma1, gamma2
     n = cfg.unit_square_resolution
     mesh = rectangle_mesh((0.0, 0.0), (2.0, 2.0), n, n,
                           diagonal=cfg.mesh_diagonal)
@@ -173,8 +185,10 @@ def _as_f64(a, device) -> torch.Tensor:
 
 def build_problem(cfg: OCPConfig, u_d=None, x0=None,
                   device="cuda") -> OCPProblem:
-    """Build the problem on ``device`` from a config, loading u_d/x0 from
-    ``reference_runs/<ud_experiment>`` unless given."""
+    """Build the problem on ``device`` from a config. Unless given, u_d/x0
+    are the analytic 3-buoy measurements on the L-shape (``lshape_ud``)
+    and are loaded from ``reference_runs/<ud_experiment>`` on the
+    square."""
     dev = resolve_device(device)
     _check_supported(cfg)
     mesh, center, gamma1, gamma2 = _domain_setup(cfg)
@@ -191,7 +205,9 @@ def build_problem(cfg: OCPConfig, u_d=None, x0=None,
         cfg.viscosity, bc_dofs).dense())
 
     nt = cfg.num_time_steps
-    if u_d is None or x0 is None:
+    if (u_d is None or x0 is None) and cfg.L_shape:
+        u_d, x0 = lshape_ud(cfg)
+    elif u_d is None or x0 is None:
         base = os.path.join(cfg.reference_runs_dir, cfg.ud_experiment)
         u_d = np.load(os.path.join(base, "u_d_array.npy"))
         x0 = np.load(os.path.join(base, "x_0_array.npy"))[:, 0, :]
@@ -219,6 +235,24 @@ def build_problem(cfg: OCPConfig, u_d=None, x0=None,
         fac0=fac0)
 
 
+def lshape_ud(cfg: OCPConfig) -> Tuple[np.ndarray, np.ndarray]:
+    """Analytic L-shape measurements for 3 buoys. Two quirks of the
+    reference are kept: u_d is sampled on linspace(t0, T, nt), whose
+    spacing is T/(nt−1), while the ODE steps with h = dt; and
+    ``alpha_scaled`` takes its buoy count from the ``ud_experiment``
+    string, whatever it says, while the problem holds these 3 buoys."""
+    nt = cfg.num_time_steps
+    t = np.linspace(cfg.t0, cfg.T, nt)
+    ud1 = 0.5 * (np.cos(np.pi * (t - 0.5)) - 1 - np.cos(np.pi))
+    u_d = np.zeros((3, nt, 2))
+    u_d[0, :, 0] = ud1
+    u_d[1, :, 0] = ud1
+    u_d[1, :, 1] = ud1
+    u_d[2, :, 1] = ud1
+    x0 = np.array([[0.5, 0.5], [1.0, 0.5], [1.5, 1.0]])
+    return u_d, x0
+
+
 def initial_control(prob: OCPProblem, case: int = 0) -> Control:
     """The q₀ presets: case 0 the OCP default (Taylor–Green), 1 zero, 2
     the component-swapped Taylor–Green, 3 constant 0.1, 4 the limits
@@ -243,6 +277,11 @@ def initial_control(prob: OCPProblem, case: int = 0) -> Control:
     else:
         raise ValueError(f"unknown control case {case}")
     return ctrl_mod.from_expression(prob.space, prob.bq, fn)
+
+
+def fd_direction(prob: OCPProblem) -> Control:
+    """df = (0.1, 0.1), the direction of the gradient check."""
+    return ctrl_mod.constant(prob.space, prob.bq, [0.1, 0.1])
 
 
 # ---------------------------------------------------------------------------
@@ -382,24 +421,90 @@ def reduced_gradient(prob: OCPProblem, f: Control,
     return Control(prob.alpha * f.quad - z_quad, prob.alpha * f.p2 - zu)
 
 
-def gd_step(prob: OCPProblem, f: Control, lr,
-            use_line_search: bool = False) -> GDStepResult:
-    """One full gradient-descent iteration without line search.
+def line_search(prob: OCPProblem, f: Control, g: Control, fwd: ForwardState,
+                lr: float, tau: float = 0.5, c_armijo: float = 1e-4,
+                lr_min: float = 1e-6, max_ls_iters: int = 80):
+    """Armijo backtracking along df = −g from ``lr``, a host loop over
+    forward solves. Returns (lr, probes, gradj).
 
-    As in the reference, J is recorded with the OLD u_values and the NEW
-    control, and the learning rate is the caller's."""
-    if use_line_search:
-        raise NotImplementedError(
-            "ocean_torch: the Armijo line search is not ported yet")
+    A probe at lr accepts when J(f) − J(f + lr·df) ≥ lr·(−c·gradj) with
+    gradj = ⟨g, df⟩_Γ₁; else lr ← max(τ·lr, lr_min). The search stops
+    after the one failed probe at the floor (a further probe would be the
+    identical computation) and after ``max_ls_iters`` decrements.
+    ``probes`` counts the accepting (or last) probe too."""
+    df = Control(-g.quad, -g.p2)
+    gradj = float(ctrl_mod.boundary_inner(prob.bq, g, df))
+    cond_thresh = -c_armijo * gradj
+    j_old = float(cost(prob, fwd.u_values, f.quad))
+    it = 0
+    while True:
+        f_ls = f.quad + lr * df.quad
+        j_new = float(cost(prob, _forward(prob, f_ls).u_values, f_ls))
+        accept = j_old - j_new >= lr * cond_thresh
+        if accept or not (it < max_ls_iters and lr > lr_min):
+            return lr, it + 1, gradj
+        lr = max(tau * lr, lr_min)
+        it += 1
+
+
+def gd_step(prob: OCPProblem, f: Control, lr,
+            use_line_search: bool = False, tau: float = 0.5,
+            c_armijo: float = 1e-4, lr_min: float = 1e-6,
+            max_ls_iters: int = 80) -> GDStepResult:
+    """One full gradient-descent iteration, with the Armijo backtracking
+    line search (``line_search``) when ``use_line_search``.
+
+    As in the reference, the learning rate is the caller's and is not
+    reset (pass the returned one back in), the accepted line-search state
+    is discarded, and J is recorded with the OLD u_values and the NEW
+    control."""
     lr = float(lr)
     fwd = _forward(prob, f.quad)
     z, adj_ok = _solve_adjoint_flagged(prob, fwd)
     g = reduced_gradient(prob, f, z)
+    gradj, inner = 0.0, 0
+    if use_line_search:
+        lr, inner, gradj = line_search(prob, f, g, fwd, lr, tau, c_armijo,
+                                       lr_min, max_ls_iters)
     f_new = f.axpy(-lr, g)
     j_rec = cost(prob, fwd.u_values, f_new.quad)
     u, _ = prob.space.split(fwd.w)
     div_u = assemble.divergence_l2(prob.space, u)
     diverged = (not math.isfinite(fwd.newton.residual_norm)
                 or not bool(torch.isfinite(j_rec)) or not adj_ok)
-    return GDStepResult(f_new, lr, j_rec, div_u, fwd, z, g, 0.0, 0,
+    return GDStepResult(f_new, lr, j_rec, div_u, fwd, z, g, gradj, inner,
                         diverged)
+
+
+class GDTrajectory(NamedTuple):
+    """Per-iteration scalars of ``gd_multi_step``, (n_steps,) each."""
+    J: torch.Tensor
+    lr: torch.Tensor                 # accepted LR per iteration
+    div_u: torch.Tensor
+    inner_iterations: torch.Tensor
+    mask_count: torch.Tensor         # escaped buoys
+    diverged: torch.Tensor
+
+
+def gd_multi_step(prob: OCPProblem, f: Control, lr, n_steps: int,
+                  use_line_search: bool = True, tau: float = 0.5,
+                  c_armijo: float = 1e-4, lr_min: float = 1e-6,
+                  max_ls_iters: int = 80):
+    """``n_steps`` iterations of ``gd_step`` with the control and the LR
+    carried along: (f_final, lr_final, GDTrajectory). No divergence or
+    convergence check happens between the steps; the per-step
+    ``diverged`` flags are returned for the caller."""
+    rows = []
+    for _ in range(n_steps):
+        res = gd_step(prob, f, lr, use_line_search=use_line_search, tau=tau,
+                      c_armijo=c_armijo, lr_min=lr_min,
+                      max_ls_iters=max_ls_iters)
+        rows.append((float(res.J), res.lr, float(res.div_u),
+                     res.inner_iterations, int(res.fwd.mask.sum()),
+                     res.diverged))
+        f, lr = res.f_new, res.lr
+    cols = list(zip(*rows)) if rows else [()] * 6
+    dtypes = (torch.float64, torch.float64, torch.float64, torch.int64,
+              torch.int64, torch.bool)
+    return f, lr, GDTrajectory(*(torch.tensor(c, dtype=d)
+                                 for c, d in zip(cols, dtypes)))

@@ -230,3 +230,72 @@ def test_wrappers_reject_mixed_devices(dev, grid):
     with pytest.raises(ValueError):
         ozaki_slice_sums(torch.zeros(4, dtype=torch.int64), vals,
                          torch.ones(12, dtype=torch.float64, device=dev), 3)
+
+
+# --- the L-shape: all five kernels on its hard inputs -----------------------
+
+def _lgrid_on(dev, res):
+    st = make_space(structured.l_shape_mesh(res), dev)
+    return st, make_grideval(st)
+
+
+@pytest.mark.parametrize("case", kernel_cases.LSHAPE_PRIMAL_CASES)
+def test_primal_kernel_lshape_hard_inputs(dev, case):
+    _, ge = _lgrid_on(dev, kernel_cases.lshape_case_res(case, 16))
+    u_img, x0, h, nt = kernel_cases.lshape_primal_case(case, 16)
+    u_img, x0 = u_img.to(dev), x0.to(dev)
+    got = primal_ode_steps(ge, u_img, x0, h, nt)
+    plain = primal_ode_steps_plain(ge, u_img, x0, h, nt)
+    assert bool(plain[2].any())
+    assert all(torch.equal(a, b) for a, b in zip(got, plain))
+
+
+@pytest.mark.parametrize("case", kernel_cases.LSHAPE_ADJOINT_CASES)
+def test_adjoint_kernel_lshape_hard_inputs(dev, case):
+    _, ge = _lgrid_on(dev, kernel_cases.lshape_case_res(case, 16))
+    g_img, x, resid, vlimit, h = (
+        a.to(dev) if torch.is_tensor(a) else a
+        for a in kernel_cases.lshape_adjoint_case(case, 16))
+    assert torch.equal(adjoint_ode_steps(ge, g_img, x, resid, vlimit, h),
+                       adjoint_ode_steps_plain(ge, g_img, x, resid, vlimit,
+                                               h))
+
+
+@pytest.mark.parametrize("res", [16, 64])
+@pytest.mark.parametrize("case", kernel_cases.LSHAPE_POINT_CASES)
+def test_point_kernels_lshape_hard_inputs(dev, case, res):
+    """Point sources, ∇u evaluation and (on the cells these points are
+    located in) the segment sum."""
+    from ocean_torch.mesh import locate_points
+    st, ge = _lgrid_on(dev, res)
+    pts, r = (a.to(dev) for a in kernel_cases.lshape_point_case(case, res))
+    hk, lk = point_source_limbs(ge, pts, r)
+    hp, lp = point_source_limbs_plain(ge, pts, r)
+    assert torch.equal(hk, hp) and torch.equal(lk, lp)
+    rng = np.random.default_rng(5)
+    Gy, Gx = ge.vg_shape
+    g_img = torch.as_tensor(rng.standard_normal((Gy * Gx, 2, 2)), device=dev)
+    vk, ik = eval_p1_tensor_cuda(ge, g_img, pts)
+    vp, ip = eval_p1_tensor_grid(ge, g_img, pts)
+    assert torch.equal(vk, vp) and torch.equal(ik, ip)
+    assert bool(ik.any()) and not bool(ik.all())
+    cell, _, _ = locate_points(st.locator, pts)
+    vals = torch.as_tensor(rng.standard_normal((pts.shape[0], 12)),
+                           device=dev)
+    scale = pow2_scale(vals)
+    assert torch.equal(ozaki_slice_sums(cell, vals, scale, st.num_cells),
+                       ozaki_slice_sums_plain(cell, vals, scale,
+                                              st.num_cells))
+
+
+def test_plain_lshape_location_is_the_cpus(dev):
+    """The plain location with the projection gives the same bits on the
+    card as on the CPU."""
+    from ocean_torch.ode.grideval import grid_coords
+    _, ge = _lgrid_on(dev, 12)
+    _, ge_cpu = _lgrid_on("cpu", 12)
+    pts = torch.cat([kernel_cases.lshape_point_case(c, 12)[0]
+                     for c in kernel_cases.LSHAPE_POINT_CASES])
+    for a, b in zip(grid_coords(ge.locator, pts.to(dev)),
+                    grid_coords(ge_cpu.locator, pts)):
+        assert torch.equal(a.cpu(), b)

@@ -15,6 +15,7 @@ case names its grid), which the card-only tests and the smoke test run
 through the kernels. No comparison has a tolerance.
 """
 
+import dataclasses
 import functools
 import re
 
@@ -25,7 +26,8 @@ from hypothesis import given, settings, strategies as st
 
 from ocean_torch import kernels
 from ocean_torch.mesh import structured
-from ocean_torch.mesh.locate import _EPS, _square_index, in_domain
+from ocean_torch.mesh.locate import (_EPS, _square_index, clamp_to_extent,
+                                     in_domain)
 from ocean_torch.fem.spaces import make_space
 from ocean_torch.ode import cuda_adjoint, cuda_ode
 from ocean_torch.ode.grideval import (eval_velocity_grid, grid_coords,
@@ -279,3 +281,135 @@ def test_staged_stores_cover_every_slot_once(K, nt, steps):
         assert np.array_equal(hits, want)
     same_buoy = xs[1:, 0] == xs[:-1, 0]
     assert np.all(xs[1:, 1][same_buoy] == xs[:-1, 1][same_buoy] + 1)
+
+
+# --- the L-shape: projection on the raw position, the five plain mirrors ---
+
+from torch_kernel_cases import (LSHAPE_ADJOINT_CASES, LSHAPE_POINT_CASES,
+                                LSHAPE_PRIMAL_CASES, lshape_adjoint_case,
+                                lshape_case_res, lshape_point_case,
+                                lshape_primal_case)
+
+RES = 8
+
+
+@functools.lru_cache(maxsize=None)
+def lgrid(res: int):
+    return make_grideval(make_space(structured.l_shape_mesh(res), "cpu"))
+
+
+def test_geom_carries_the_lshape_constants():
+    g = kernels.geom(lgrid(RES).locator, _EPS)
+    assert g.lshape == 1 and (g.cx, g.cy) == (1.0, 1.0)
+    assert (g.cx_e, g.cy_e) == (1.0 - _EPS, 1.0 + _EPS)
+    assert g.y_proj == 1.0 - 0.5 * 0.25 and (g.nx, g.ny) == (RES, RES)
+    r = kernels.geom(grid(NX).locator, _EPS)
+    assert r.lshape == 0 and (r.nx, r.ny) == (NX, NX)
+    # the raw-position block test needs the corner inside the extent
+    bad = dataclasses.replace(lgrid(RES).locator, lshape_corner=(0.0, 1.0))
+    with pytest.raises(ValueError):
+        kernels.geom(bad, _EPS)
+
+
+def _short_locate(loc, pts):
+    """``csrc/grid.cuh::locate_short`` on the L-shape in plain PyTorch:
+    clamps on the coordinate, block test on the raw position."""
+    g = kernels.geom(loc, _EPS)
+    px, py = pts[..., 0], pts[..., 1]
+    fx = kernels.axis_f_clamped(px, g.xmin, g.xmax, g.ox, g.hx, g.inv_hx)
+    fy = kernels.lshape_fy_short(px, py, g)
+    ix = torch.clamp(torch.floor(fx).nan_to_num(0.0).to(torch.int64), 0,
+                     g.nx - 1)
+    iy = torch.clamp(torch.floor(fy).nan_to_num(0.0).to(torch.int64), 0,
+                     g.ny - 1)
+    return ix, iy, fx - ix.to(fx.dtype), fy - iy.to(fy.dtype)
+
+
+@pytest.mark.parametrize("res", [8, 12, 50])
+def test_lshape_short_locate_equals_plain_on_hard_points(res):
+    """Corner, slack, re-entrant edges, missing block, random points in
+    and around the bounding box, huge and infinite positions: the square
+    and the local coordinates from the raw position are the plain
+    version's from the clamped and projected one, bit for bit."""
+    loc = lgrid(res).locator
+    rng = np.random.default_rng(41)
+    pts = torch.cat(
+        [lshape_point_case(c, res)[0] for c in LSHAPE_POINT_CASES]
+        + [torch.as_tensor(rng.uniform(-0.5, 2.5, (3000, 2))),
+           torch.tensor([[np.inf, 1.5], [-np.inf, 1.5], [0.5, np.inf],
+                         [0.5, -np.inf], [1e300, 1e300], [-1e300, 1e300],
+                         [1.0, 1.0], [np.nextafter(1.0, 0.0), 1.5],
+                         [0.5, np.nextafter(1.0, 2.0)]])])
+    want = grid_coords(loc, pts)
+    got = _short_locate(loc, pts)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    ix, iy, _, _ = want
+    # no point is located in the missing block's interior squares
+    assert not bool(((ix < res // 2) & (iy > res // 2)).any())
+    assert bool((~in_domain(loc, pts)).any())
+
+
+@settings(max_examples=300, deadline=None)
+@given(px=st.floats(allow_nan=True, width=64),
+       py=st.floats(allow_nan=True, width=64), res=st.sampled_from([8, 12]))
+def test_lshape_block_test_on_raw_equals_clamped(px, py, res):
+    """For any position, NaN included: f_y by the raw-position block test
+    has the bits of f_y of the clamped and projected position."""
+    loc = lgrid(res).locator
+    g = kernels.geom(loc, _EPS)
+    pts = torch.tensor([[px, py], [px, 1.5], [0.5, py]], dtype=torch.float64)
+    _, qy = clamp_to_extent(loc, pts)
+    want = kernels.axis_f(qy, g.oy, g.hy, g.inv_hy)
+    got = kernels.lshape_fy_short(pts[:, 0], pts[:, 1], g)
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got.nan_to_num(nan=0.0).view(torch.int64),
+                       want.nan_to_num(nan=0.0).view(torch.int64))
+
+
+@pytest.mark.parametrize("case", LSHAPE_PRIMAL_CASES)
+def test_six_node_primal_equals_plain_on_lshape(case):
+    res = lshape_case_res(case, RES)
+    ge = lgrid(res)
+    u_img, x0, h, nt = lshape_primal_case(case, RES)
+    xp, up, fp, kp = cuda_ode.primal_ode_steps_plain(ge, u_img, x0, h, nt)
+    xs, us, fs, ks = _six_node_steps(ge, u_img, x0, h, nt)
+    assert torch.equal(xs, xp) and torch.equal(us, up)
+    assert torch.equal(fs, fp) and torch.equal(ks, kp)
+    if case.startswith("leave_reentrant_"):
+        step = {"first": 0, "middle": nt // 2, "last": nt - 2}[case[16:]]
+        assert bool(fp.all()) and bool((kp == step).all())
+        # through the re-entrant edges, not the outer boundary
+        assert bool((xp >= 0.0).all()) and bool((xp <= 2.0).all())
+    elif case == "corner_slack":
+        assert 0 < int((kp == 0).sum()) < len(kp)
+    elif case == "missing_block":
+        assert int((kp == 0).sum()) >= len(kp) // 2
+    else:
+        assert 0 < int(fp.sum()) < len(fp)     # some leave, some stay
+
+
+@pytest.mark.parametrize("case", LSHAPE_ADJOINT_CASES)
+def test_staged_adjoint_equals_plain_on_lshape(case):
+    ge = lgrid(lshape_case_res(case, RES))
+    g_img, x, resid, vlimit, h = lshape_adjoint_case(case, RES)
+    plain = cuda_adjoint.adjoint_ode_steps_plain(ge, g_img, x, resid, vlimit,
+                                                 h)
+    staged = cuda_adjoint.adjoint_ode_steps_staged(ge, g_img, x, resid,
+                                                   vlimit, h)
+    assert torch.equal(staged, plain) and bool(plain.any())
+    inside = in_domain(ge.locator, x)
+    assert bool(inside.any()) and not bool(inside.all())
+
+
+@pytest.mark.parametrize("res,image", [(8, True), (50, True), (52, True),
+                                       (54, False), (64, False)])
+def test_shared_image_size_rule_on_lshape(res, image):
+    """The image covers the bounding box: at resolution 50 its 163,216 B
+    fit beside the 52,224 B of staging rows, at 64 they do not."""
+    got = cuda_ode.shared_bytes(lgrid(res))
+    stage = 3 * 2 * 32 * 17 * 16
+    assert got == stage + (16 * (2 * res + 1) ** 2 if image else 0)
+    assert got <= cuda_ode.SHARED_LIMIT
+    if res == 50:
+        assert got == 52224 + 163216

@@ -100,15 +100,21 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch):
 def test_unported_branches_raise():
     base = dict(u_d=np.zeros((100, 200, 2)), x0=seed_positions(100),
                 device="cpu")
-    for kw in (dict(L_shape=True), dict(newton_chord_f32=True),
+    for kw in (dict(newton_chord_f32=True),
                dict(linear_solver="mg"), dict(newton_continuation=3),
-               dict(ode_backend="grid"), dict(mesh_diagonal="left")):
+               dict(ode_backend="grid"), dict(mesh_diagonal="left"),
+               dict(L_shape=True, mesh_diagonal="left")):
         with pytest.raises(NotImplementedError):
             system.build_problem(OCPConfig(**{**FAST, **kw}), **base)
+    # the L-shape and the Armijo line search are ported: neither raises
+    p = system.build_problem(
+        OCPConfig(**{**FAST, "L_shape": True, "L_shape_resolution": 4}),
+        **base)
+    assert p.space.locator.domain == "lshape"
     p = system.build_problem(OCPConfig(**FAST), **base)
-    with pytest.raises(NotImplementedError):
-        system.gd_step(p, system.initial_control(p, 4), 5.0,
-                       use_line_search=True)
+    res = system.gd_step(p, system.initial_control(p, 4), 5.0,
+                         use_line_search=True)
+    assert res.inner_iterations >= 1
 
 
 def test_import_leaves_jax_out():
@@ -116,7 +122,9 @@ def test_import_leaves_jax_out():
             "ocean_torch.pipelines.limits, ocean_torch.convert, "
             "ocean_torch.kernels, ocean_torch.ops.scatter, "
             "ocean_torch.ops.psum_cuda, ocean_torch.ode.cuda_eval, "
-            "ocean_torch.ode.adjoint, ocean_torch.adjoint.point_sources; "
+            "ocean_torch.ode.adjoint, ocean_torch.adjoint.point_sources, "
+            "ocean_torch.opt.driver, ocean_torch.opt.grad_check, "
+            "ocean_torch.io, ocean_torch.cli, ocean_torch.pipelines.ocp; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m.startswith('ocean_jax')]; "
             "print(bad); sys.exit(1 if bad else 0)")

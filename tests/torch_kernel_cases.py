@@ -242,3 +242,163 @@ def adjoint_ode_case(case: str, nx: int, length: float = 2.0):
     return (torch.as_tensor(g_img), torch.as_tensor(x),
             torch.as_tensor(resid),
             torch.as_tensor(vlimit, dtype=torch.int32), h)
+
+
+# ---------------------------------------------------------------------------
+# the L-shape [0,2]x[0,1] ∪ [1,2]x[1,2]: inner corner (1, 1), missing block
+# x < 1, y > 1
+# ---------------------------------------------------------------------------
+
+# Seeds on both sides of the corner's slack (x ≥ 1 − 1e-12 or y ≤ 1 + 1e-12
+# is inside) and on the corner itself; buoys that leave through the two
+# re-entrant edges at the first, a middle and the last step; seeds in the
+# missing block (located by projection, outside from step 0); the
+# resolution whose half-grid image just fits in shared memory beside the
+# staging rows (50: 163,216 B) and one whose image does not (64)
+LSHAPE_PRIMAL_CASES = ("corner_slack", "leave_reentrant_first",
+                       "leave_reentrant_middle", "leave_reentrant_last",
+                       "missing_block", "res=50", "res=64")
+
+# walks that cross the re-entrant edges both ways (the carry of the last
+# in-domain ∇u), stay in the missing block, or sit around the corner
+LSHAPE_ADJOINT_CASES = ("walk", "corner_slack", "missing_block",
+                        "vlimit_mixed", "res=50", "res=64")
+
+# for the point sources, the ∇u evaluation and (as cell ids) the segment sum
+LSHAPE_POINT_CASES = ("random", "corner_slack", "missing_block",
+                      "reentrant_edges")
+
+LSHAPE_CORNER = (1.0, 1.0)
+
+
+def lshape_case_res(case: str, res: int) -> int:
+    """The L-shape resolution a case runs on: its own where it names one
+    (``"res=50"``), else the caller's."""
+    return int(case[4:]) if case.startswith("res=") else res
+
+
+def _corner_points() -> np.ndarray:
+    """Points on the inner corner, and on, within and beyond the slack of
+    its two re-entrant edges, on both sides."""
+    cx, cy = LSHAPE_CORNER
+    offs = (0.0, 0.5 * _SLACK, -0.5 * _SLACK, 2.0 * _SLACK, -2.0 * _SLACK,
+            1.0 * _SLACK)
+    pts = []
+    for dx in offs:
+        for dy in offs:
+            pts.append((cx - dx, cy + dy))          # around the corner
+        pts.append((cx - dx, cy + 0.63))            # along the edge x = cx
+        pts.append((cx - 0.41, cy + dx))            # along the edge y = cy
+    return np.array(pts)
+
+
+def _lshape_image(res: int, fn) -> np.ndarray:
+    """Half-grid image ((2·res+1)², 2) of ``fn(gx, gy)`` with the nodes
+    strictly inside the missing block at zero, as ``velocity_to_grid``
+    leaves them."""
+    H = 2 * res + 1
+    gy, gx = np.meshgrid(np.linspace(0.0, 2.0, H), np.linspace(0.0, 2.0, H),
+                         indexing="ij")
+    img = np.stack(fn(gx, gy), -1)
+    cx, cy = LSHAPE_CORNER
+    img[(gx < cx) & (gy > cy)] = 0.0
+    return img.reshape(H * H, 2)
+
+
+def lshape_point_case(case: str, res: int):
+    """(points, r) of one case of ``LSHAPE_POINT_CASES``, (M, 2) float64
+    each, |r| ≤ 1, on and around the L-shape."""
+    rng = np.random.default_rng(29)
+    cx, cy = LSHAPE_CORNER
+    M = 1500
+    pts = rng.uniform(-0.1, 2.1, (M, 2))
+    if case == "corner_slack":
+        pts = np.resize(_corner_points(), (M, 2))
+    elif case == "missing_block":
+        pts = np.stack([rng.uniform(-0.1, cx, M),
+                        rng.uniform(cy, 2.1, M)], 1)
+        pts[::5] = rng.uniform(0.0, 2.0, (len(pts[::5]), 2))
+    elif case == "reentrant_edges":         # on the edges and half a square
+        h = 2.0 / res                       # either side of them
+        t = rng.uniform(0.0, 1.0, M)
+        side = rng.choice([-0.5 * h, 0.0, 0.5 * h], M)
+        pts = np.where((np.arange(M) % 2 == 0)[:, None],
+                       np.stack([cx + side, cy + t], 1),
+                       np.stack([cx - t, cy + side], 1))
+    elif case != "random":
+        raise ValueError(case)
+    r = rng.uniform(-1.0, 1.0, (M, 2))
+    r[::11] = 0.0
+    return torch.as_tensor(pts), torch.as_tensor(r)
+
+
+def lshape_primal_case(case: str, res: int):
+    """(u_img, x0, h, nt) of one case of ``LSHAPE_PRIMAL_CASES`` on the
+    L-shape at resolution ``lshape_case_res(case, res)``."""
+    res = lshape_case_res(case, res)
+    rng = np.random.default_rng(31)
+    cx, cy = LSHAPE_CORNER
+    K, nt, h = 60, 40, 0.01
+    img = _lshape_image(res, lambda gx, gy: (
+        0.4 * np.sin(3.0 * gy) - 0.9 + 0.1 * gx,
+        0.8 * np.cos(2.0 * gx) + 0.3 * gy))
+    # seeds inside the L, many near the re-entrant edges
+    x0 = np.concatenate([
+        np.stack([rng.uniform(1.0, 1.3, 30), rng.uniform(1.0, 1.9, 30)], 1),
+        np.stack([rng.uniform(0.1, 1.0, 30), rng.uniform(0.7, 1.0, 30)], 1),
+        rng.uniform([0.05, 0.05], [1.95, 0.95], (17, 2))])
+    if case == "corner_slack":
+        img = 1e-3 * img
+        x0 = _corner_points()
+        K = len(x0)
+    elif case.startswith("leave_reentrant_"):
+        # unit flow (−1, +1): x_k = x0 − k·h and y_k = y0 + k·h to
+        # rounding. A start half a step short of the mark crosses the edge
+        # x = cx (from the upper block) or y = cy (from the lower left) at a
+        # known step
+        first_outside = {"first": 0, "middle": nt // 2,
+                         "last": nt - 2}[case[16:]]
+        img = _lshape_image(res, lambda gx, gy: (-np.ones_like(gx),
+                                                 np.ones_like(gx)))
+        K = 40
+        x0 = np.empty((K, 2))
+        x0[:20, 0] = cx + h * first_outside - 0.5 * h
+        x0[:20, 1] = rng.uniform(1.05, 1.5, 20)
+        x0[20:, 0] = rng.uniform(0.5, 0.9, 20)
+        x0[20:, 1] = cy - h * first_outside + 0.5 * h
+    elif case == "missing_block":
+        x0[::2] = np.stack([rng.uniform(0.0, 0.99, len(x0[::2])),
+                            rng.uniform(1.01, 2.0, len(x0[::2]))], 1)
+        K = len(x0)
+    elif not case.startswith("res="):
+        raise ValueError(case)
+    return torch.as_tensor(img), torch.as_tensor(x0[:K]), h, nt
+
+
+def lshape_adjoint_case(case: str, res: int):
+    """(g_img, x, resid, vlimit, h) of one case of
+    ``LSHAPE_ADJOINT_CASES`` on the L-shape at resolution
+    ``lshape_case_res(case, res)``."""
+    res = lshape_case_res(case, res)
+    rng = np.random.default_rng(37)
+    cx, cy = LSHAPE_CORNER
+    K, nt, h = 50, 120, 0.01
+    g_img = rng.standard_normal(((res + 1) ** 2, 2, 2))
+    start = np.stack([rng.uniform(0.6, 1.4, K), rng.uniform(0.6, 1.4, K)],
+                     1)[:, None, :]
+    walk = np.cumsum(0.03 * rng.standard_normal((K, nt, 2)), 1)
+    x = np.clip(start + walk, -0.05, 2.05)
+    resid = 0.1 * rng.standard_normal((K, nt, 2))
+    vlimit = np.full(K, nt)
+    if case == "corner_slack":
+        x = np.resize(_corner_points(), (K, nt, 2))
+    elif case == "missing_block":
+        x[: K // 2, :, 0] = np.clip(x[: K // 2, :, 0], 0.0, 0.95)
+        x[: K // 2, :, 1] = np.clip(x[: K // 2, :, 1], 1.05, 2.0)
+    elif case == "vlimit_mixed":
+        vlimit = rng.integers(0, nt + 1, K)
+    elif case != "walk" and not case.startswith("res="):
+        raise ValueError(case)
+    return (torch.as_tensor(g_img), torch.as_tensor(x),
+            torch.as_tensor(resid),
+            torch.as_tensor(vlimit, dtype=torch.int32), h)
