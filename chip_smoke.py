@@ -76,10 +76,27 @@ Phases, in order; any failure exits non-zero before the last line:
     prints ``lshape_res50_gd_iteration_seconds``;
 13. the five kernels at a real size on the L-shape: 10⁴ meshgrid seeds
     inside the L on path 4's velocity and ∇u fields, each kernel equal to
-    its plain version and timed as in phase 4.
+    its plain version and timed as in phase 4;
+14. path 5, the "left" diagonal: path 1's configuration and data with
+    ``mesh_diagonal="left"``, counts set to 0, one GD step, counts read,
+    3 timed (``gd_iteration_seconds_10000_buoys_left``), the stages;
+    kernels 1–3 and (through the ``grid=`` adjoint entry point) kernel 4
+    on its inputs, each held to its plain version and timed; one GD step
+    with ``ode_backend="grid"`` whose trajectories equal kernel 1's; the
+    small reference at Nx=8, K=100 against the CPU;
+15. path 6, the gen-1 pipe meshes at function level, as the JAX package
+    drove them on its TPU (``scripts/pallas_domains_hw.py``): the record's
+    three meshes at K=512 (escapes beside the record's 25 / 19 / 24) and
+    the ∇u evaluation on 4,096 points; then, counts set to 0, the primal
+    ODE, ∇u projection, adjoint ODE, fused point sources and ∇u evaluation
+    at 10⁴ seeds on the gmsh-default graded pipe (73 × 73, the primal
+    ODE's image in device memory) and the uniform 22 × 22 pipe, each
+    kernel held to its plain version and timed.
+Phase 4 also runs the hard inputs of the "left" diagonal and the pipes.
 
-The line before the last is the kernels' JSON record; the last line is
-``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+The line before the last is the kernels' JSON record, one entry per
+kernel and geometry (``geometry``); the last line is ``{"ok": true,
+"device": {...}}``. Imports nothing of JAX.
 """
 
 import dataclasses
@@ -358,7 +375,7 @@ def point_sources_record(ge, x, gamma, label: str = "") -> dict:
     # rounding grows with the ~10⁴ terms per node (reported, bounded at
     # 1e-10 rather than 1e-12)
     ix, iy, s, t = grid_coords(ge.locator, pts)
-    W = p2_patch_weights(s, t).reshape(-1, 9)
+    W = p2_patch_weights(s, t, ge.locator.diagonal).reshape(-1, 9)
     offs = torch.tensor([bb * Hx + a for bb in range(3) for a in range(3)],
                         device=dev)
     nodes = (((2 * iy) * Hx + 2 * ix)[:, None] + offs).reshape(-1)
@@ -613,6 +630,348 @@ def lshape_hard_inputs(dev) -> None:
           f"50 and 64), point_sources, p1_eval and segment_sum {n_pt} cases "
           f"× resolutions 32 and 64: all equal to the plain versions",
           flush=True)
+
+
+RECTANGLE = "rectangle, Nx=32"       # the geometry of phase 4's records
+
+KERNEL_FILES = {
+    "primal_ode": ("ocean_torch/csrc/primal_ode.cu",
+                   "ocean_jax/ode/pallas_ode.py:480"),
+    "adjoint_ode": ("ocean_torch/csrc/adjoint_ode.cu",
+                    "ocean_jax/ode/pallas_adjoint.py:326"),
+}
+
+
+def ode_record(name: str, geometry: str, err, ms, plain, bound) -> dict:
+    """The kernels-line record of one ODE kernel on one geometry."""
+    source, replaces = KERNEL_FILES[name]
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                geometry=geometry, max_abs_err=err, ms=ms, plain_ms=plain,
+                bound_ms=bound[0], bound_by=bound[1], library_ms=None)
+
+
+def domain_hard_inputs(dev) -> None:
+    """The four grid kernels on the hard inputs of the other domains
+    (``tests/torch_kernel_cases.py``), each equal to its plain version on
+    the card (``same``: ``torch.equal`` with NaN equal to NaN, for buoys
+    that start at NaN): the rectangle's and the L-shape's cases on the
+    "left" diagonal (Nx 32, 12 and 64; resolutions 32, 50 and 64) with
+    points on the anti-diagonals s + t = 1, and the pipe cases (fringe,
+    buoys entering the removed squares at the first, a middle and the
+    last step, grid lines, NaN, walks) on the four pipe meshes."""
+    import numpy as np
+    import torch
+    import torch_kernel_cases as kc
+    from ocean_torch.adjoint import cuda_psrc
+    from ocean_torch.fem.spaces import make_space
+    from ocean_torch.mesh import structured
+    from ocean_torch.ode import cuda_adjoint, cuda_eval, cuda_ode
+    from ocean_torch.ode.grideval import eval_p1_tensor_grid, make_grideval
+
+    counts = dict(primal=0, adjoint=0, points=0)
+
+    def primal(ge, case, where):
+        u_img, x0, h, nt = case
+        u_img, x0 = u_img.to(dev), x0.to(dev)
+        got = cuda_ode.primal_ode_steps(ge, u_img, x0, h, nt)
+        plain = cuda_ode.primal_ode_steps_plain(ge, u_img, x0, h, nt)
+        check(all(kc.same(a, b) for a, b in zip(got, plain)),
+              f"primal_ode, hard input {where}: differs from the plain "
+              "version")
+        counts["primal"] += 1
+
+    def adjoint(ge, case, where):
+        g_img, x, resid, vlimit, h = (a.to(dev) if torch.is_tensor(a) else a
+                                      for a in case)
+        check(torch.equal(
+            cuda_adjoint.adjoint_ode_steps(ge, g_img, x, resid, vlimit, h),
+            cuda_adjoint.adjoint_ode_steps_plain(ge, g_img, x, resid, vlimit,
+                                                 h)),
+              f"adjoint_ode, hard input {where}: μ differs from the plain "
+              "version")
+        counts["adjoint"] += 1
+
+    def points(ge, pts, r, where):
+        pts, r = pts.to(dev), r.to(dev)
+        hk, lk = cuda_psrc.point_source_limbs(ge, pts, r)
+        hp, lp = cuda_psrc.point_source_limbs_plain(ge, pts, r)
+        check(torch.equal(hk, hp) and torch.equal(lk, lp),
+              f"point_sources, hard input {where}: limbs differ from the "
+              "plain version")
+        Gy, Gx = ge.vg_shape
+        g_img = torch.as_tensor(np.random.default_rng(43).standard_normal(
+            (Gy * Gx, 2, 2)), device=dev)
+        pts = torch.cat([pts, torch.tensor(
+            [[np.nan, 1.0], [0.2, np.nan], [np.inf, 0.3]],
+            dtype=torch.float64, device=dev)])
+        vk, ik = cuda_eval.eval_p1_tensor_cuda(ge, g_img, pts)
+        vp, ip = eval_p1_tensor_grid(ge, g_img, pts)
+        check(kc.same(vk, vp) and torch.equal(ik, ip),
+              f"p1_eval, hard input {where}: differs from the plain version")
+        check(bool(ik.any()) and not bool(ik.all()),
+              f"p1_eval, hard input {where}: points on one side only")
+        counts["points"] += 1
+
+    def space(mesh):
+        return make_grideval(make_space(mesh, dev))
+
+    left = {nx: space(structured.rectangle_mesh(
+        (0.0, 0.0), (2.0, 2.0), nx, nx, diagonal="left"))
+        for nx in (32, 12, 64)}
+    for case in kc.PRIMAL_CASES:
+        primal(left[kc.ode_case_nx(case, 32)], kc.primal_ode_case(case, 32),
+               f"{case!r} (left)")
+    primal(left[32], kc.left_primal_case(32), "'anti_diagonal' (left)")
+    for case in kc.ADJOINT_CASES:
+        adjoint(left[kc.ode_case_nx(case, 32)],
+                kc.adjoint_ode_case(case, 32), f"{case!r} (left)")
+    for case in kc.PSRC_CASES:
+        pts, r = kc.point_source_case(case, 32)
+        extra = torch.as_tensor(kc.anti_diagonal_points(32))
+        points(left[32], torch.cat([pts, extra]),
+               torch.cat([r, torch.full_like(extra, 0.5)]),
+               f"{case!r} (left)")
+    lleft = {res: space(structured.l_shape_mesh(res, diagonal="left"))
+             for res in (32, 50, 64)}
+    for case in kc.LSHAPE_PRIMAL_CASES:
+        primal(lleft[kc.lshape_case_res(case, 32)],
+               kc.lshape_primal_case(case, 32), f"L-shape {case!r} (left)")
+    for case in kc.LSHAPE_ADJOINT_CASES:
+        adjoint(lleft[kc.lshape_case_res(case, 32)],
+                kc.lshape_adjoint_case(case, 32),
+                f"L-shape {case!r} (left)")
+    for case in kc.LSHAPE_POINT_CASES:
+        points(lleft[32], *kc.lshape_point_case(case, 32),
+               f"L-shape {case!r} (left)")
+    for name, kw in sorted(kc.PIPE_MESHES.items()):
+        mesh, _ = structured.pipe_mesh(**kw)
+        ge = space(mesh)
+        for mesh_name, case in kc.pipe_primal_cases():
+            if mesh_name == name:
+                primal(ge, kc.pipe_primal_case(case, mesh),
+                       f"{case!r} (pipe {name})")
+        for case in kc.PIPE_ADJOINT_CASES:
+            adjoint(ge, kc.pipe_adjoint_case(case, mesh),
+                    f"{case!r} (pipe {name})")
+        for case in kc.PIPE_POINT_CASES:
+            points(ge, *kc.pipe_point_case(case, mesh),
+                   f"{case!r} (pipe {name})")
+    torch.cuda.synchronize()
+    print(f"hard inputs of the other domains: primal_ode {counts['primal']}, "
+          f"adjoint_ode {counts['adjoint']} and point_sources + p1_eval "
+          f"{counts['points']} cases (the left diagonal on the rectangle "
+          "and the L-shape, the four pipe meshes): all equal to the plain "
+          "versions", flush=True)
+
+
+def pipe_record_sizes(dev, card) -> None:
+    """Path 6 at the TPU record's sizes, inputs made as
+    ``scripts/pallas_domains_hw.py`` makes them: the primal ODE equal to
+    its plain version with the record's escape count, and the ∇u
+    evaluation on 4,096 points."""
+    import numpy as np
+    import torch
+    from torch_kernel_cases import PIPE_RECORD
+    from ocean_torch.fem.spaces import make_space
+    from ocean_torch.mesh import structured
+    from ocean_torch.ode.grideval import (grad_to_grid, make_grideval,
+                                          velocity_to_grid)
+
+    for name, (kw, escapes_tpu) in sorted(PIPE_RECORD.items()):
+        mesh, _ = structured.pipe_mesh(**kw)
+        sp = make_space(mesh, dev)
+        ge = make_grideval(sp)
+        rng = np.random.default_rng(7)
+        u = torch.as_tensor(0.6 * rng.standard_normal((sp.n_p2, 2)),
+                            device=dev)
+        K, nt, h = 512, 200, 0.005
+        x0 = torch.as_tensor(rng.uniform(0.05, 1.95, (K, 2)), device=dev)
+        _, _, _, escaped = primal_ode_check(
+            ge, velocity_to_grid(ge, u), x0, h, nt,
+            f"{name} {mesh.grid_shape} K=512", card)
+        print(f"{name}: {escaped} of {K} buoys escape, the TPU record "
+              f"{escapes_tpu}", flush=True)
+        check(escaped == escapes_tpu, f"{name}: {escaped} escapes, the "
+              f"record {escapes_tpu}")
+        grad_u = torch.as_tensor(rng.standard_normal((sp.n_p1, 2, 2)),
+                                 device=dev)
+        pts = torch.as_tensor(rng.uniform([0.0, 0.0], [2.0, 2.0],
+                                          (4096, 2)), device=dev)
+        p1_eval_record(ge, grad_to_grid(ge, grad_u), pts,
+                       f" on {name} (4,096 points)")
+
+
+PIPE_REAL = (
+    ("pipe, obstacle, graded (gmsh defaults)",
+     dict(obstacle=True, graded=True)),
+    ("pipe, obstacle, uniform (resolution 22)",
+     dict(resolution=22, obstacle=True)),
+)
+
+
+def pipe_real_size(dev, card) -> list:
+    """Path 6 at a real size: the pipe with its obstacle on the graded
+    grid of the gmsh defaults (73 squares an axis, the half-grid image too
+    large for shared memory) and on the uniform 22 × 22 grid; 10⁴ seeds (a
+    tenth in the fringe between the disk and the removed squares), nt=200,
+    a smooth analytic flow along the pipe. The path runs once with the
+    counts set to 0 (primal ODE, ∇u projection, reference adjoint ODE,
+    fused point sources with γ from ``fused_gamma`` and the escape mask,
+    ∇u at every raw trajectory point), then each kernel is held to its
+    plain version and timed. Buoys must leave both through the obstacle
+    and through the outer boundary. Returns the kernels' records."""
+    import numpy as np
+    import torch
+    import torch_kernel_cases as kc
+    from ocean_torch import kernels
+    from ocean_torch.adjoint.cuda_psrc import point_source_image
+    from ocean_torch.adjoint.point_sources import fused_gamma
+    from ocean_torch.fem.spaces import make_space
+    from ocean_torch.mesh import structured
+    from ocean_torch.mesh.locate import in_domain
+    from ocean_torch.ode import (cuda_ode, eval_p1_tensor_cuda,
+                                 solve_adjoint_ode_cuda,
+                                 solve_primal_ode_cuda)
+    from ocean_torch.ode.grideval import (grad_to_grid, make_grideval,
+                                          velocity_to_grid)
+    from ocean_torch.solve import GradProjector
+
+    records = []
+    for label, kw in PIPE_REAL:
+        mesh, _ = structured.pipe_mesh(**kw)
+        sp = make_space(mesh, dev)
+        ge = make_grideval(sp)
+        Hy, Hx = ge.hg_shape
+        total = cuda_ode.shared_bytes(ge)
+        geometry = f"{label}, {mesh.grid_shape[0]}x{mesh.grid_shape[1]}"
+        print(f"{geometry}: {sp.ndof} mixed dofs, image {16 * Hy * Hx} B, "
+              f"primal_ode dynamic shared memory {total} B: image in "
+              f"{'shared' if total > 16 * Hy * Hx else 'device'} memory",
+              flush=True)
+        # a smooth flow along the pipe, through and past the obstacle (a
+        # random P2 field, as at the record's sizes, has gradients of
+        # O(1/h_min) on the fine cells, and μ grows by (1 + h·|∇u|) a step)
+        c = sp.dof_coords_p2
+        u = torch.stack([0.6 + 0.3 * torch.sin(np.pi * c[:, 1]),
+                         0.3 * torch.sin(np.pi * c[:, 0])
+                         * torch.cos(np.pi * c[:, 1])], 1)
+        rng = np.random.default_rng(7)
+        K, nt, h = 10000, 200, 0.005
+        seeds = torch.as_tensor(np.concatenate([
+            rng.uniform(0.02, 1.98, (9000, 2)), kc.fringe_points(mesh, 1000)]),
+            device=dev)
+        center = torch.tensor([1.0, 1.0], dtype=torch.float64, device=dev)
+        u_d = torch.zeros(K, nt, 2, dtype=torch.float64, device=dev)
+        kernels.reset_launch_counts()
+        ode = solve_primal_ode_cuda(ge, u, seeds, h, nt, center)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        projector = GradProjector.build(sp)
+        grad_u = projector.project(sp, u)
+        torch.cuda.synchronize()
+        t_proj = time.perf_counter() - t0
+        mu = solve_adjoint_ode_cuda(ge, grad_u, ode.x, ode.u_values, u_d,
+                                    ode.mask, h)
+        active = (~ode.mask)[:, None].expand(K, nt)
+        gamma = fused_gamma(sp, u, ode.x, mu, u_d, active, h, center,
+                            ode.u_values)
+        b = point_source_image(ge, ode.x, gamma)
+        g_img = grad_to_grid(ge, grad_u)
+        vals, _ = eval_p1_tensor_cuda(ge, g_img, ode.x_raw)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        want = {"primal_ode": 1, "adjoint_ode": 1, "point_sources": 1,
+                "p1_eval": 1, "segment_sum": 0}
+        check(counts == want, f"{geometry}: launches {counts}, expected "
+              f"{want}")
+        check(bool(torch.isfinite(b).all()) and bool(
+            torch.isfinite(vals).all()) and bool(torch.isfinite(mu).all()),
+              f"{geometry}: non-finite results")
+        # where each escaped buoy was at its first failing step: beyond
+        # the outer boundary, or in the obstacle or its fringe
+        kf = ode.kfail.to(torch.int64).clamp(max=nt - 1)
+        gone = ode.x_raw[torch.arange(K, device=dev), kf][ode.mask]
+        outer = ((gone < -1e-12) | (gone > 2.0 + 1e-12)).any(1)
+        n_outer, n_hole = int(outer.sum()), int((~outer).sum())
+        check(not bool(in_domain(ge.locator, gone).any()),
+              f"{geometry}: an escaped buoy's first failing point is inside")
+        print(f"{geometry}, {K} seeds: {int(ode.mask.sum())} buoys leave, "
+              f"{n_hole} through the obstacle (the 1000 fringe seeds at "
+              f"step 0 among them) and {n_outer} through the outer "
+              f"boundary; ∇u projection {t_proj!r} s; launches {counts}",
+              flush=True)
+        check(n_outer >= 1 and n_hole >= 1, f"{geometry}: buoys leave "
+              f"through the obstacle {n_hole}, the outer boundary "
+              f"{n_outer}")
+        err, ms, plain, _ = primal_ode_check(ge, velocity_to_grid(ge, u),
+                                             seeds, h, nt, geometry, card)
+        records.append(ode_record("primal_ode", geometry, err, ms, plain,
+                                  primal_bound(ge, K, nt)))
+        # the raw positions keep the escaped buoys where they left, in the
+        # obstacle or its fringe: the carry of the last in-domain ∇u
+        vlimit = torch.full((K,), nt, dtype=torch.int32, device=dev)
+        err, ms, plain = adjoint_ode_check(
+            ge, g_img, ode.x_raw.contiguous(),
+            (ode.u_values - u_d).contiguous(), vlimit, h, geometry, card)
+        records.append(ode_record("adjoint_ode", geometry, err, ms, plain,
+                                  adjoint_bound(ge, K, nt)))
+        records.append(point_sources_record(ge, ode.x, gamma,
+                                            f" on {geometry}"))
+        records.append(p1_eval_record(ge, g_img, ode.x_raw,
+                                      f" on {geometry}"))
+        for rec in records[-4:]:
+            rec["geometry"] = geometry
+            rec["launches"] = counts[rec["name"]]
+    return records
+
+
+def path5_kernels(prob, res, counts: dict, card: str) -> list:
+    """Kernels 1–3 on path 5's inputs and kernel 4 through the ``grid=``
+    adjoint entry point, each held to its plain version and timed as in
+    phase 4. Returns the kernels' records."""
+    import torch
+    from ocean_torch import kernels
+    from ocean_torch.ode import solve_adjoint_ode, solve_adjoint_ode_cuda
+    from ocean_torch.ode.grideval import grad_to_grid, velocity_to_grid
+
+    geometry = "rectangle, left diagonal, Nx=32"
+    ge, K, nt, h = prob.grid, prob.K, prob.nt, prob.h
+    fwd = res.fwd
+    u, _ = prob.space.split(fwd.w)
+    err, ms, plain, _ = primal_ode_check(ge, velocity_to_grid(ge, u),
+                                         prob.x0, h, nt, "path 5", card)
+    records = [ode_record("primal_ode", geometry, err, ms, plain,
+                          primal_bound(ge, K, nt))]
+    grad_u = prob.projector.project(prob.space, u)
+    g_img = grad_to_grid(ge, grad_u)
+    vlimit = torch.full((K,), nt, dtype=torch.int32, device=prob.device)
+    err, ms, plain = adjoint_ode_check(
+        ge, g_img, fwd.x, (fwd.u_values - prob.u_d).contiguous(), vlimit, h,
+        "path 5", card)
+    records.append(ode_record("adjoint_ode", geometry, err, ms, plain,
+                              adjoint_bound(ge, K, nt)))
+    records.append(point_sources_record(
+        *scatter_inputs(prob, fwd)["point_sources"], " on path 5"))
+    kernels.reset_launch_counts()
+    mu_par = solve_adjoint_ode(prob.space, grad_u, fwd.x, fwd.u_values,
+                               prob.u_d, fwd.mask, h, method="parallel",
+                               grid=ge)
+    torch.cuda.synchronize()
+    n_eval = kernels.LAUNCHES["p1_eval"]
+    check(n_eval == 1, "path 5: solve_adjoint_ode(grid=) did not launch "
+          "p1_eval once")
+    mu_seq = solve_adjoint_ode_cuda(ge, grad_u, fwd.x, fwd.u_values,
+                                    prob.u_d, fwd.mask, h)
+    err_par = float((mu_par - mu_seq).abs().max())
+    check(err_par <= TOL, f"path 5: parallel adjoint vs kernel: {err_par}")
+    print(f"path 5 grid= adjoint entry point: parallel vs kernel "
+          f"{err_par!r}", flush=True)
+    records.append(p1_eval_record(ge, g_img, fwd.x, " on path 5"))
+    for rec in records:
+        rec["geometry"] = geometry
+        rec["launches"] = (n_eval if rec["name"] == "p1_eval"
+                           else counts[rec["name"]])
+    return records
 
 
 def small_reference_armijo(name: str, cfg, control, u_d=None, x0=None):
@@ -1009,11 +1368,8 @@ def main() -> int:
     err, ms, plain, _ = primal_ode_check(ge, u_img, prob.x0, h, nt,
                                          "path 1", card)
     b, by = primal_bound(ge, K, nt)
-    records.append(dict(name="primal_ode", route="cuda",
-                        source="ocean_torch/csrc/primal_ode.cu",
-                        replaces="ocean_jax/ode/pallas_ode.py:480",
-                        max_abs_err=err, ms=ms, plain_ms=plain,
-                        bound_ms=b, bound_by=by, library_ms=None))
+    records.append(ode_record("primal_ode", RECTANGLE, err, ms, plain,
+                              (b, by)))
     print(f"primal_ode: bound_ms={b:.4f} dynamic shared "
           f"memory {cuda_ode.shared_bytes(ge)} B a block (staging rows and "
           f"the {16 * Hy * Hx} B image)", flush=True)
@@ -1026,11 +1382,8 @@ def main() -> int:
     err, ms, plain = adjoint_ode_check(ge, g_img, fwd.x, resid, vlimit, h,
                                        "path 1", card)
     b, by = adjoint_bound(ge, K, nt)
-    records.append(dict(name="adjoint_ode", route="cuda",
-                        source="ocean_torch/csrc/adjoint_ode.cu",
-                        replaces="ocean_jax/ode/pallas_adjoint.py:326",
-                        max_abs_err=err, ms=ms, plain_ms=plain,
-                        bound_ms=b, bound_by=by, library_ms=None))
+    records.append(ode_record("adjoint_ode", RECTANGLE, err, ms, plain,
+                              (b, by)))
     print(f"adjoint_ode: bound_ms={b:.4f}", flush=True)
 
     # kernels 3 and 5 take what path 1's point-source stage hands them
@@ -1047,6 +1400,7 @@ def main() -> int:
 
     hard_inputs(ge)
     lshape_hard_inputs(dev)
+    domain_hard_inputs(dev)
 
     # --- 5. small-input reference: card kernels vs CPU plain versions -----
     small = dict(ud_experiment="100_buoys", unit_square_resolution=8,
@@ -1230,6 +1584,41 @@ def main() -> int:
     # --- 13. the five kernels at a real size on the L-shape ---------------
     lshape_real_size(prob4, res4.last_fwd.w, records, card)
 
+    # --- 14. path 5: the "left" diagonal at the main path's width --------
+    cfg5 = dataclasses.replace(cfg, mesh_diagonal="left")
+    prob5 = system.build_problem(cfg5, u_d=u_d, x0=x0, device=dev)
+    check(prob5.space.locator.diagonal == "left", "path 5: not the left "
+          "diagonal")
+    f5 = system.initial_control(prob5, case=4)
+    res5, counts5 = run_path("path 5 (left diagonal)", prob5, f5, lr, PATH1,
+                             "gd_iteration_seconds_10000_buoys_left", card)
+    print_stages("path 5", prob5, f5, lr)
+    domain_records = path5_kernels(prob5, res5, counts5, card)
+    # the "grid" backend at the same state: the primal ODE through the
+    # kernel's plain version, the same trajectories
+    kernels.reset_launch_counts()
+    res5g = system.gd_step(dataclasses.replace(prob5, ode_backend="grid"),
+                           f5, lr)
+    torch.cuda.synchronize()
+    counts5g = kernels.launch_counts()
+    check(counts5g["primal_ode"] == 0 and counts5g["adjoint_ode"] == 0,
+          f"path 5, grid backend: launches {counts5g}")
+    check(torch.equal(res5g.fwd.x, res5.fwd.x)
+          and torch.equal(res5g.fwd.u_values, res5.fwd.u_values)
+          and torch.equal(res5g.fwd.mask, res5.fwd.mask),
+          "path 5: the grid backend's trajectories differ from kernel 1's")
+    print(f"path 5, ode_backend=\"grid\": trajectories equal to kernel 1's, "
+          f"J={float(res5g.J)!r} (kernels {float(res5.J)!r}), launches "
+          f"{counts5g}", flush=True)
+    small_reference("small reference, path 5 (left diagonal)",
+                    OCPConfig(psrc_method="fused", mesh_diagonal="left",
+                              **small),
+                    lambda p: system.initial_control(p, 4), lr)
+
+    # --- 15. path 6: the pipe domains, function level ----------------------
+    pipe_record_sizes(dev, card)
+    domain_records += pipe_real_size(dev, card)
+
     launches = {n: counts1[n] for n in PATH1}
     launches.update({n: counts2[n] for n in PATH2 if n not in PATH1})
     launches["p1_eval"] = counts3["p1_eval"]
@@ -1237,7 +1626,8 @@ def main() -> int:
         rec["launches"] = launches[rec["name"]]
         rec["launches_path3"] = counts_p3[rec["name"]]
         rec["launches_path4"] = counts_p4[rec["name"]]
-    print(json.dumps({"kernels": records}))
+        rec["geometry"] = RECTANGLE
+    print(json.dumps({"kernels": records + domain_records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -121,7 +121,8 @@ def point_source_limbs(ge: GridEval, points: torch.Tensor, r: torch.Tensor):
     # the kernel reads double2
     points, r = (t.clone() if t.data_ptr() % 16 else t
                  for t in (points.contiguous(), r.contiguous()))
-    kernels.require_cuda("point_sources", points, r)
+    kernels.require_cuda("point_sources", points, r,
+                         *kernels.grid_tables(ge.locator))
     if points.dtype != torch.float64 or r.dtype != torch.float64:
         raise ValueError("point_sources: float64 inputs required")
     M = points.shape[0]

@@ -8,7 +8,7 @@ and default, plus ``--device``.
     python -m ocean_torch.pipelines.limits --ud-experiment 10000_buoys --fast
 
 A flag that selects a branch the port does not have yet (the multigrid
-solver, continuation, float32 chord sweeps, the "grid" ODE backend) is
+solver, continuation, float32 chord sweeps) is
 accepted and makes the run raise ``NotImplementedError`` by name
 (``system.build_problem``). ``--dense-apply`` selects a TPU workaround
 and is accepted and ignored: the port factors in float64.
@@ -58,8 +58,8 @@ def build_parser(prog: str, defaults: OCPConfig) -> argparse.ArgumentParser:
     p.add_argument("--ode-backend", default=None,
                    choices=["gather", "grid", "pallas"],
                    help="primal/adjoint buoy-ODE backend (overrides the "
-                        "--fast bundle; pallas = the CUDA kernels; grid is "
-                        "not ported)")
+                        "--fast bundle; pallas = the CUDA kernels; grid = "
+                        "their plain half-grid stencil for the primal ODE)")
     p.add_argument("--psrc-method", default=None,
                    choices=["scatter", "sorted", "binned", "ozaki",
                             "ozaki_pallas", "fused"],

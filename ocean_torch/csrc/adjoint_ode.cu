@@ -11,7 +11,9 @@
 // image. The kernel carries the last in-domain grad_u (the reference's
 // reuse-previous quirk, starting from zeros) and zeroes the grad_u factor
 // outside the window t <= vlimit (vlimit = nt: unrestricted), as the TPU
-// kernel does. Escaped buoys are masked to mu = 0 by the caller.
+// kernel does. Escaped buoys are masked to mu = 0 by the caller. With the
+// obstacle, a point in the disk or in a removed square is outside (the
+// located square is tested after locate): the carry engages there too.
 // Native float64 replaces the TPU's double-single pairs and one-hot MXU
 // row selection.
 //
@@ -69,6 +71,11 @@ adjoint_ode_kernel(const double* __restrict__ g_img,
     __shared__ double2 sR[kSlots];         // (u - u_d)[t], then mu[t-1]
     __shared__ unsigned char sF[kSlots];   // inside flag
 
+    if constexpr (G::kGraded) {
+        extern __shared__ double lines[];    // the grid lines, dynamic
+        stage_lines(g, lines);
+    }
+
     const int tid = threadIdx.x;
     const int k0 = blockIdx.x * kTile;
     const int nb = min(kTile, K - k0);     // buoys of this block
@@ -100,12 +107,15 @@ adjoint_ode_kernel(const double* __restrict__ g_img,
             if (c < nchunks && t >= 1) {
                 const double2 p = x[row + t];
                 sR[slot] = resid[row + t];
-                sF[slot] = in_domain(g, p.x, p.y);
+                const bool inside = in_domain(g, p.x, p.y);
+                if constexpr (!G::kHole) sF[slot] = inside;
                 int ix, iy;
                 double s, tl;
                 locate(g, p.x, p.y, ix, iy, s, tl);
+                if constexpr (G::kHole)
+                    sF[slot] = inside && off_obstacle(g, p.x, p.y, ix, iy);
                 double W[4];
-                p1_weights(s, tl, W);
+                p1_weights<G::kLeft>(s, tl, W);
                 double ge[4];
 #pragma unroll
                 for (int cc = 0; cc < 4; ++cc) {
@@ -165,7 +175,8 @@ extern "C" int adjoint_ode_launch(const double* g_img, const double* x,
     if (K <= 0) return 0;
     int blocks = (K + kTile - 1) / kTile;
     return with_geom(g, [&](auto geom) {
-        adjoint_ode_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        adjoint_ode_kernel<<<blocks, kThreads, lines_bytes(geom),
+                             (cudaStream_t)stream>>>(
             g_img, (const double2*)x, (const double2*)resid, vlimit,
             (double2*)mu, K, nt, Gx, geom, h);
         return (int)cudaGetLastError();

@@ -8,7 +8,10 @@
 // 3x3 P2 patch weights W are evaluated, and W * r is added into the
 // (Hy*Hx, 2) image, where r = gamma / scale is gamma pre-divided by a
 // per-component power of two (scale = 2^ceil(log2 max|gamma|), |r| <= 1;
-// computed by the wrapper, exact).
+// computed by the wrapper, exact). Any domain of grid.cuh: the obstacle
+// needs nothing here, since a point with gamma != 0 lies in a cell (an
+// escaped buoy's gamma is 0), and image nodes of removed squares are
+// dropped by the caller's dof_to_node gather.
 //
 // Determinism. Float64 atomics sum in an order that changes from run to
 // run. Instead each contribution v = W * r (|v| <= 1, |W| <= 1) is split
@@ -80,6 +83,10 @@ __global__ void __launch_bounds__(THREADS)
 point_sources_kernel(const double* __restrict__ pts,
                      const double* __restrict__ r, u64* __restrict__ acc_hi,
                      u64* __restrict__ acc_lo, long long M, int Hx, G g) {
+    if constexpr (G::kGraded) {
+        extern __shared__ double lines[];    // the grid lines, dynamic
+        stage_lines(g, lines);
+    }
     const int lane = threadIdx.x & 31;
     // the loop bound is uniform over the warp, so every lane reaches the
     // full-mask warp intrinsics below
@@ -112,7 +119,7 @@ point_sources_kernel(const double* __restrict__ pts,
             double s, t;
             locate(g, px, py, ix, iy, s, t);
             double W[9];
-            p2_weights(s, t, W);
+            p2_weights<G::kLeft>(s, t, W);
             key = (long long)iy * g.nx + ix;
 #pragma unroll
             for (int j = 0; j < 9; ++j) {
@@ -171,7 +178,8 @@ extern "C" int point_sources_launch(const double* pts, const double* r,
     const long long want = (M + THREADS - 1) / THREADS;
     const int blocks = (int)(want < 65535 ? want : 65535);
     return with_geom(g, [&](auto geom) {
-        point_sources_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+        point_sources_kernel<<<blocks, THREADS, lines_bytes(geom),
+                               (cudaStream_t)stream>>>(
             pts, r, (u64*)acc_hi, (u64*)acc_lo, M, Hx, geom);
         return (int)cudaGetLastError();
     });

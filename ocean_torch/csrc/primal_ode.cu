@@ -43,14 +43,22 @@
 //    with time along the lanes, kSteps*16 contiguous bytes a buoy
 //    (cuda_ode.py::staged_store_index is the index arithmetic).
 //
-// The domain (rectangle or L-shape) is a second template parameter beside
-// the image's place, the geometry type G of grid.cuh: four instantiations,
-// chosen by primal_ode_launch, and the rectangle's are the code they were
-// before the L-shape came. On the
+// The domain is a second template parameter beside the image's place, the
+// geometry type G of grid.cuh (rectangle, L-shape, either diagonal; the
+// pipe, graded and/or with its obstacle): twenty instantiations, chosen by
+// primal_ode_launch. The rectangle's and the L-shape's with the "right"
+// diagonal are the code they were before the other domains came (the
+// `else` of the step). The others take velocity_at: the "left" diagonal
+// has its own six nodes (the same weights, other barycentrics); a graded
+// grid is located by a binary search over its lines in shared memory
+// (locate: the clamp on the coordinate of locate_short rests on a uniform
+// f = (p - o) / h); the obstacle's test reads the owning square. On the
 // L-shape the image covers the bounding box (101 x 101 nodes, 163,216 B,
 // at resolution 50: with the 52,224 B of staging rows just inside the
-// limit); the nodes of the missing block hold zeros and an in-domain
-// point never reads one with a weight other than 0.
+// limit); the nodes of the missing block, or of the removed squares
+// around the obstacle, hold zeros and an in-domain point never reads one
+// with a weight other than 0. The gmsh-default graded pipe (147 x 147
+// nodes, 345,744 B) reads its image from device memory.
 //
 // Built with --fmad=false (see grid.cuh): x, u, failed and kfail are
 // bit-identical to the plain version (a zero may differ in sign).
@@ -102,6 +110,62 @@ __device__ __forceinline__ void velocity(const double2* __restrict__ img,
     }
 }
 
+// velocity() on the other domains: either diagonal, located by the grid
+// lines where they are graded; (ix, iy) is the owning square, which the
+// obstacle test reads
+template <bool kSharedImage, class G>
+__device__ __forceinline__ void velocity_at(const double2* __restrict__ img,
+                                            int Hx, const G& g,
+                                            const AxisEnds& ends, double px,
+                                            double py, double& ux,
+                                            double& uy, int& ix, int& iy) {
+    double s, t;
+    if constexpr (G::kGraded)
+        locate(g, px, py, ix, iy, s, t);
+    else
+        locate_short(g, ends, px, py, ix, iy, s, t);
+    const bool up = upper<G::kLeft>(s, t);
+    double l0, l1, l2;
+    if constexpr (G::kLeft) {
+        l0 = up ? 1.0 - t : 1.0 - s - t;
+        l1 = up ? 1.0 - s : s;
+        l2 = up ? s + t - 1.0 : t;
+    } else {
+        l0 = up ? 1.0 - t : 1.0 - s;
+        l1 = up ? t - s : s - t;
+        l2 = up ? s : t;
+    }
+    const double v0 = vert(l0), v1 = vert(l1), v2 = vert(l2);
+    const double e01 = 4.0 * l0 * l1, e02 = 4.0 * l0 * l2;
+    const double e12 = 4.0 * l1 * l2;
+    const double w[6] = {v0, e01, up ? e02 : v1, up ? v1 : e02, e12, v2};
+    // "right", below: (0,0) (0,1) (0,2) (1,1) (1,2) (2,2); above: (0,0)
+    // (1,0) (1,1) (2,0) (2,1) (2,2). "left", below: (0,0) (0,1) (0,2) (1,0)
+    // (1,1) (2,0); above: (0,2) (1,1) (1,2) (2,0) (2,1) (2,2)
+    int o[6];
+    if constexpr (G::kLeft) {
+        const int lo[6] = {0, 1, 2, Hx, Hx + 1, 2 * Hx};
+        const int hi[6] = {2, Hx + 1, Hx + 2, 2 * Hx, 2 * Hx + 1,
+                           2 * Hx + 2};
+#pragma unroll
+        for (int i = 0; i < 6; ++i) o[i] = up ? hi[i] : lo[i];
+    } else {
+        const int r[6] = {0, up ? Hx : 1, up ? Hx + 1 : 2,
+                          up ? 2 * Hx : Hx + 1, up ? 2 * Hx + 1 : Hx + 2,
+                          2 * Hx + 2};
+#pragma unroll
+        for (int i = 0; i < 6; ++i) o[i] = r[i];
+    }
+    const double2* base = img + ((size_t)(2 * iy) * Hx + 2 * ix);
+#pragma unroll
+    for (int i = 0; i < 6; ++i) {
+        const double2 v = kSharedImage ? base[o[i]] : __ldg(base + o[i]);
+        const double tx = w[i] * v.x, ty = w[i] * v.y;
+        ux = (i == 0) ? tx : ux + tx;
+        uy = (i == 0) ? ty : uy + ty;
+    }
+}
+
 template <bool kSharedImage, class G>
 __global__ void __launch_bounds__(kThreads)
 primal_ode_kernel(const double2* __restrict__ u_img,
@@ -122,6 +186,11 @@ primal_ode_kernel(const double2* __restrict__ u_img,
         __syncthreads();
         img = simg;
     }
+    // a graded grid's lines go behind the staging rows and the image
+    if constexpr (G::kGraded)
+        stage_lines(g, reinterpret_cast<double*>(
+                           shared + kStageSlots +
+                           (kSharedImage ? Hx * Hy : 0)));
     // lanes past the last buoy walk the last buoy's path and store nothing:
     // a warp flushes together
     const int k = blockIdx.x * kThreads + threadIdx.x;
@@ -140,6 +209,29 @@ primal_ode_kernel(const double2* __restrict__ u_img,
     for (int c0 = 0; c0 < nt - 1; c0 += kSteps) {
         const int cn = min(kSteps, nt - 1 - c0);
         for (int j = 0; j < cn; ++j) {
+          if constexpr (G::kLeft || G::kGraded || G::kHole) {
+            // the step on the other domains: the obstacle test reads the
+            // owning square
+            bool inside = in_domain(g, px, py);
+            double ux, uy;
+            int ix, iy;
+            velocity_at<kSharedImage>(img, Hx, g, ends, px, py, ux, uy, ix,
+                                      iy);
+            inside = inside && off_obstacle(g, px, py, ix, iy);
+            if (!inside && !failed) kfail = c0 + j;
+            failed = failed || !inside;
+            const double nx = failed ? px : px + h * ux;
+            const double ny = failed ? py : py + h * uy;
+            su[lane * kRow + j] = make_double2(failed ? 0.0 : ux,
+                                               failed ? 0.0 : uy);
+            sx[lane * kRow + j] = make_double2(nx, ny);
+            px = nx;
+            py = ny;
+          } else {
+            // the rectangle and the L-shape with the "right" diagonal: this
+            // branch is their code as it was before the other domains came
+            // (scripts/compare_ode_kernels_torch.py holds their machine
+            // code to it)
             const bool inside = in_domain(g, px, py);
             double ux, uy;
             velocity<kSharedImage>(img, Hx, g, ends, px, py, ux, uy);
@@ -152,6 +244,7 @@ primal_ode_kernel(const double2* __restrict__ u_img,
             sx[lane * kRow + j] = make_double2(nx, ny);
             px = nx;
             py = ny;
+          }
         }
         __syncwarp();
         // time along the lanes: an instruction writes kSteps consecutive
@@ -179,10 +272,10 @@ static int launch(const double* u_img, const double* x0, double* xs,
     const int blocks = (K + kThreads - 1) / kThreads;
     // the image goes to shared memory where it fits beside the staging
     // rows, else it is read from device memory
-    const size_t with_image =
-        kStageBytes + (size_t)Hx * Hy * sizeof(double2);
+    const size_t stage = kStageBytes + lines_bytes(g);
+    const size_t with_image = stage + (size_t)Hx * Hy * sizeof(double2);
     const bool shared_image = with_image <= kSharedLimit;
-    const size_t bytes = shared_image ? with_image : kStageBytes;
+    const size_t bytes = shared_image ? with_image : stage;
     auto kernel = shared_image ? primal_ode_kernel<true, G>
                                : primal_ode_kernel<false, G>;
     if (bytes > 48 * 1024) {         // has to be asked for above 48 KB

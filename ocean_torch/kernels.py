@@ -60,14 +60,19 @@ def launch_counts() -> dict:
 
 
 class Geom(ctypes.Structure):
-    """ctypes mirror of ``struct Geom`` in ``csrc/grid.cuh``."""
+    """ctypes mirror of ``struct Geom`` in ``csrc/grid.cuh``: the host
+    description of a domain that every launch function takes."""
 
     _fields_ = [(n, ctypes.c_double) for n in (
         "ox", "oy", "hx", "hy", "inv_hx", "inv_hy", "xmin", "ymin", "xmax",
         "ymax", "xmin_e", "ymin_e", "xmax_e", "ymax_e")] + [
         ("nx", ctypes.c_int), ("ny", ctypes.c_int),
         ("lshape", ctypes.c_int)] + [(n, ctypes.c_double) for n in (
-            "cx", "cy", "cx_e", "cy_e", "y_proj")]
+            "cx", "cy", "cx_e", "cy_e", "y_proj")] + [
+        ("left", ctypes.c_int), ("graded", ctypes.c_int),
+        ("hole", ctypes.c_int)] + [(n, ctypes.c_double) for n in (
+            "hcx", "hcy", "r2")] + [
+        (n, ctypes.c_void_p) for n in ("xs", "ys", "active")]
 
 
 def exact_reciprocal(hs: float) -> float:
@@ -126,30 +131,98 @@ def lshape_fy_short(px: torch.Tensor, py: torch.Tensor, g: "Geom"):
     return torch.where((px < g.cx) & (py > g.cy), f_proj, f)
 
 
+def graded_axis(p: torch.Tensor, lines: torch.Tensor, n: int):
+    """Plain mirror of ``csrc/grid.cuh::axis_search``: the square index and
+    local coordinate of clamped positions ``p`` on one axis of a graded
+    grid by the kernel's binary search. The count of lines ≤ p grows by
+    ``!(line > p)``, as ``torch.searchsorted(right=True)`` counts, so a NaN
+    counts every line; then the index is clamped to [0, n−1] and the end
+    points are subtracted and divided."""
+    lo = torch.zeros(p.shape, dtype=torch.int64, device=p.device)
+    hi = torch.full_like(lo, n + 1)
+    for _ in range((n + 1).bit_length()):
+        go = lo < hi
+        mid = (lo + hi) >> 1
+        right = ~(lines[mid.clamp(max=n)] > p)
+        lo = torch.where(go & right, mid + 1, lo)
+        hi = torch.where(go & ~right, mid, hi)
+    i = torch.clamp(lo - 1, 0, n - 1)
+    l0 = lines[i]
+    return i, (p - l0) / (lines[i + 1] - l0)
+
+
+def off_obstacle(px: torch.Tensor, py: torch.Tensor, ix: torch.Tensor,
+                 iy: torch.Tensor, g: "Geom", active: torch.Tensor):
+    """Plain mirror of ``csrc/grid.cuh::off_obstacle``, the obstacle's part
+    of ``in_domain`` as the kernels evaluate it: dx·dx + dy·dy ≥ r² on the
+    raw position,
+    with r² the Python float ``r * r``, and the located square of the
+    clamped position holding cells (``active``, ``active_squares``)."""
+    dx, dy = px - g.hcx, py - g.hcy
+    return (dx * dx + dy * dy >= g.r2) & (active[iy, ix] != 0)
+
+
+def active_squares(loc) -> torch.Tensor:
+    """The obstacle's table of the kernels: uint8 (ny, nx), 1 where the
+    square holds cells (``square_to_cell[:, :, 0] >= 0``), on the
+    locator's device. Made once per locator and kept on it."""
+    table = loc.__dict__.get("_active_squares")
+    if table is None:
+        table = (loc.square_to_cell[:, :, 0] >= 0).to(torch.uint8)
+        table = table.contiguous()
+        object.__setattr__(loc, "_active_squares", table)
+    return table
+
+
 def geom(loc, eps: float) -> Geom:
-    """Kernel geometry of a uniform ``mesh.locate.Locator`` (rectangle or
-    L-shape); the slack thresholds and the projection height are
+    """Kernel geometry of a ``mesh.locate.Locator``: a rectangle, the
+    L-shape or a pipe, either diagonal, uniform or graded, with or without
+    an obstacle. The slack thresholds, the projection height and r² are
     computed here in Python floats exactly as the plain ``in_domain`` and
-    ``clamp_to_extent`` compute them, and each spacing gets its
-    reciprocal where that is exact (``exact_reciprocal``)."""
-    if loc.domain not in ("rect", "lshape") or loc.diagonal != "right":
-        raise NotImplementedError(
-            "the CUDA kernels support uniform rectangles and the L-shape "
-            f"with the 'right' diagonal only (got {loc.domain!r}, "
-            f"{loc.diagonal!r})")
+    ``clamp_to_extent`` compute them, and each uniform spacing gets its
+    reciprocal where that is exact (``exact_reciprocal``). A graded grid
+    is located by its lines alone: its ``spacing`` (the largest interval)
+    locates nothing, so the kernels get NaN spacings. The grid lines and
+    the table of active squares are passed as device pointers; they live
+    on the locator (``grid_tables``)."""
+    if loc.domain not in ("rect", "lshape", "pipe"):
+        raise ValueError(f"unknown domain {loc.domain!r}")
+    if loc.diagonal not in ("right", "left"):
+        raise ValueError(f"unknown diagonal {loc.diagonal!r}")
     xmin, ymin, xmax, ymax = loc.extent
-    hx, hy = loc.spacing
+    graded = not loc.uniform
+    hx, hy = (math.nan, math.nan) if graded else loc.spacing
     from .mesh.locate import lshape_projection
     cx, cy = loc.lshape_corner
     lshape = loc.domain == "lshape"
     if lshape and not (xmin < cx <= xmax and ymin <= cy < ymax):
         # locate_short tests the missing block on the raw position
         raise ValueError(f"L-shape corner {(cx, cy)} outside the extent")
-    return Geom(loc.origin[0], loc.origin[1], hx, hy, exact_reciprocal(hx),
-                exact_reciprocal(hy), xmin, ymin, xmax, ymax,
-                xmin - eps, ymin - eps, xmax + eps, ymax + eps,
-                loc.grid_shape[0], loc.grid_shape[1], int(lshape),
-                cx, cy, cx - eps, cy + eps, lshape_projection(loc))
+    if lshape and (graded or loc.hole is not None):
+        raise ValueError("the L-shape is uniform and has no obstacle")
+    g = Geom(loc.origin[0], loc.origin[1], hx, hy, exact_reciprocal(hx),
+             exact_reciprocal(hy), xmin, ymin, xmax, ymax,
+             xmin - eps, ymin - eps, xmax + eps, ymax + eps,
+             loc.grid_shape[0], loc.grid_shape[1], int(lshape),
+             cx, cy, cx - eps, cy + eps,
+             lshape_projection(loc) if lshape else 0.0,
+             int(loc.diagonal == "left"), int(graded),
+             int(loc.hole is not None))
+    if graded:
+        g.xs, g.ys = loc.xs_lines.data_ptr(), loc.ys_lines.data_ptr()
+    if loc.hole is not None:
+        g.hcx, g.hcy, r = loc.hole
+        g.r2 = r * r
+        g.active = active_squares(loc).data_ptr()
+    return g
+
+
+def grid_tables(loc) -> list:
+    """The tensors whose pointers ``geom`` hands the kernels: the grid
+    lines of a graded grid and the obstacle's table of active squares.
+    The wrappers check them with their inputs (``require_cuda``)."""
+    tables = [] if loc.uniform else [loc.xs_lines, loc.ys_lines]
+    return tables + ([active_squares(loc)] if loc.hole is not None else [])
 
 
 def nvcc() -> str:

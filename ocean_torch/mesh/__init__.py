@@ -3,6 +3,8 @@ from .structured import (
     rectangle_mesh,
     unit_square_mesh,
     l_shape_mesh,
+    graded_lines,
+    pipe_mesh,
     mark_boundary_facets,
 )
 from .locate import Locator, in_domain, locate_points
@@ -12,6 +14,8 @@ __all__ = [
     "rectangle_mesh",
     "unit_square_mesh",
     "l_shape_mesh",
+    "graded_lines",
+    "pipe_mesh",
     "mark_boundary_facets",
     "Locator",
     "in_domain",

@@ -1,16 +1,19 @@
-"""O(1) point-to-cell location on structured triangulations (port of the
-uniform rectangle and L-shape branches of ``ocean_jax/mesh/locate.py``).
+"""Point-to-cell location on structured triangulations (port of
+``ocean_jax/mesh/locate.py``).
 
-The owning cell of a point is a closed-form index computation on the
-structured grid of squares, vectorized over any leading shape. Also the
-inside-domain predicate (boundary inclusive, ``_EPS`` slack) that stands
-in for the reference's try/except around point evaluation.
+The owning cell of a point is an index computation on the structured
+grid of squares, vectorized over any leading shape: closed form on a
+uniform grid, a search over the grid lines (``torch.searchsorted``) on a
+graded one. Also the inside-domain predicate (boundary inclusive,
+``_EPS`` slack) that stands in for the reference's try/except around
+point evaluation; with an obstacle it also asks that the point is off
+the disk and that its square holds cells.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -22,7 +25,7 @@ _EPS = 1e-12
 
 @dataclasses.dataclass(frozen=True)
 class Locator:
-    """Device-resident tables for point location on a uniform `Mesh2D`."""
+    """Device-resident tables for point location on a `Mesh2D`."""
 
     square_to_cell: torch.Tensor   # (ny, nx, 2) int64
     cell_v0: torch.Tensor          # (nc, 2) first vertex of each cell
@@ -34,14 +37,17 @@ class Locator:
     domain: str
     extent: Tuple[float, float, float, float]
     lshape_corner: Tuple[float, float] = (1.0, 1.0)
+    hole: Optional[Tuple[float, float, float]] = None
+    # grid lines of a graded tensor grid (None: uniform)
+    xs_lines: Optional[torch.Tensor] = None       # (nx+1,) float64
+    ys_lines: Optional[torch.Tensor] = None       # (ny+1,) float64
+
+    @property
+    def uniform(self) -> bool:
+        return self.xs_lines is None
 
     @classmethod
     def from_mesh(cls, mesh: Mesh2D, device) -> "Locator":
-        if mesh.domain not in ("rect", "lshape") or mesh.diagonal != "right":
-            raise NotImplementedError(
-                "ocean_torch locates on uniform rectangles and the L-shape "
-                "with the 'right' diagonal only (got "
-                f"{mesh.domain!r}, {mesh.diagonal!r})")
         v = mesh.cell_vertices()
         jac = np.stack([v[:, 1] - v[:, 0], v[:, 2] - v[:, 0]], axis=2)
         jinv = np.linalg.inv(jac)
@@ -59,14 +65,29 @@ class Locator:
             domain=mesh.domain,
             extent=mesh.extent,
             lshape_corner=mesh.lshape_corner,
+            hole=mesh.hole,
+            xs_lines=_lines(mesh.xs, device),
+            ys_lines=_lines(mesh.ys, device),
         )
+
+
+def _lines(lines, device):
+    return (None if lines is None else
+            torch.as_tensor(lines, dtype=torch.float64, device=device))
 
 
 def _square_index(loc: Locator, px: torch.Tensor, py: torch.Tensor):
     """Owning square (ix, iy) and local coordinates (s, t) ∈ [0,1]² of
-    already-clamped points (closed form on the uniform grid)."""
-    x0, y0 = loc.origin
+    already-clamped points: closed form on a uniform grid; on a graded one
+    the count of lines ≤ p (``searchsorted(right=True)``, so a point on a
+    line belongs to the square on its right, as ``floor`` gives) less one,
+    clamped, and the offset over the interval's length."""
     nx, ny = loc.grid_shape
+    if not loc.uniform:
+        ix, s = _graded_axis(loc.xs_lines, px, nx)
+        iy, t = _graded_axis(loc.ys_lines, py, ny)
+        return ix, iy, s, t
+    x0, y0 = loc.origin
     # The spacings divide as 0-dim tensors on the points' device: by a
     # Python scalar, PyTorch's CUDA kernel multiplies by the rounded
     # reciprocal instead, which is the quotient only for a spacing that
@@ -83,8 +104,21 @@ def _square_index(loc: Locator, px: torch.Tensor, py: torch.Tensor):
     return ix, iy, s, t
 
 
+def _graded_axis(lines: torch.Tensor, p: torch.Tensor, n: int):
+    """One axis of the graded branch of ``_square_index``: the end points
+    are gathered, then subtracted and divided (no reciprocal)."""
+    i = torch.searchsorted(lines, p.contiguous(), right=True) - 1
+    i = torch.clamp(i, 0, n - 1)
+    lo = lines[i]
+    return i, (p - lo) / (lines[i + 1] - lo)
+
+
 def in_domain(loc: Locator, points: torch.Tensor) -> torch.Tensor:
-    """Inside-domain predicate (boundary inclusive, ``_EPS`` slack)."""
+    """Inside-domain predicate (boundary inclusive, ``_EPS`` slack). With
+    an obstacle a point must also be off the disk (tested on the raw
+    position) and its square, located from the clamped position, must
+    hold cells: the fringe between the disk and the staircase of removed
+    squares has no owning cell, so evaluation there would fail."""
     x, y = points[..., 0], points[..., 1]
     xmin, ymin, xmax, ymax = loc.extent
     ok = ((x >= xmin - _EPS) & (x <= xmax + _EPS)
@@ -92,6 +126,13 @@ def in_domain(loc: Locator, points: torch.Tensor) -> torch.Tensor:
     if loc.domain == "lshape":
         cx, cy = loc.lshape_corner
         ok = ok & ((y <= cy + _EPS) | (x >= cx - _EPS))
+    if loc.hole is not None:
+        hx_, hy_, r = loc.hole
+        ok = ok & (((x - hx_) ** 2 + (y - hy_) ** 2) >= r * r)
+        px = torch.clamp(x, xmin, xmax)
+        py = torch.clamp(y, ymin, ymax)
+        ix, iy, _, _ = _square_index(loc, px, py)
+        ok = ok & (loc.square_to_cell[iy, ix, 0] >= 0)
     return ok
 
 
@@ -126,7 +167,10 @@ def locate_points(loc: Locator, points: torch.Tensor):
     inside = in_domain(loc, points)
     px, py = clamp_to_extent(loc, points)
     ix, iy, s, t = _square_index(loc, px, py)
-    which = (t > s).to(torch.int64)      # upper triangle: above v00-v11
+    if loc.diagonal == "right":
+        which = (t > s).to(torch.int64)      # upper: above v00-v11
+    else:
+        which = (s + t > 1.0).to(torch.int64)   # upper: above v10-v01
     cell = torch.clamp(loc.square_to_cell[iy, ix, which], min=0)
     d = torch.stack([px, py], dim=-1) - loc.cell_v0[cell]
     xi = torch.einsum("...ij,...j->...i", loc.cell_jinv[cell], d)

@@ -1,17 +1,18 @@
-"""Structured triangulations of rectangle unions (numpy copy of the
-uniform square and L-shape branches of ``ocean_jax/mesh/structured.py``).
+"""Structured triangulations of rectangle unions (numpy copy of
+``ocean_jax/mesh/structured.py``, without its native C++ triangulator, which
+numbers alike).
 
 The equivalent of ``dolfin.RectangleMesh`` / ``dolfin.UnitSquareMesh``:
 the mesh is a set of plain host arrays (vertices, cells, edges, boundary
-facets) plus structured-grid metadata for O(1) point location. Each grid
+facets) plus structured-grid metadata for point location. Each grid
 square is split along dolfin's "right" diagonal (lower-left to
-upper-right) into two counter-clockwise triangles. Numbering is identical
-to the JAX package's.
+upper-right) or its "left" one into two counter-clockwise triangles.
+Numbering is identical to the JAX package's.
 
-The rectangle and the L-shape ``[0,2]x[0,1] ∪ [1,2]x[1,2]`` with the
-"right" diagonal are ported; the "left" diagonal raises
-``NotImplementedError`` and the pipe, graded and hole domains have no
-constructor here yet.
+Domains: the rectangle, the L-shape ``[0,2]x[0,1] ∪ [1,2]x[1,2]`` and the
+gen-1 pipe ``[0,2]²`` (``pipe_mesh``), uniform or on the graded tensor
+grid of ``graded_lines``, with or without its circular obstacle (the
+squares that touch the disk are removed).
 """
 
 from __future__ import annotations
@@ -46,9 +47,18 @@ class Mesh2D:
     square_to_cell: np.ndarray          # (ny, nx, 2) int64; -1 = inactive
     diagonal: str
 
-    domain: str                          # "rect" | "lshape"
+    domain: str                          # "rect" | "lshape" | "pipe"
     extent: Tuple[float, float, float, float]   # xmin, ymin, xmax, ymax
     lshape_corner: Tuple[float, float] = (1.0, 1.0)  # inner corner (x, y)
+    hole: Optional[Tuple[float, float, float]] = None  # (cx, cy, r) obstacle
+    # grid lines of a graded tensor grid (None: uniform, located in closed
+    # form; else located by a search over the lines)
+    xs: Optional[np.ndarray] = None      # (nx+1,)
+    ys: Optional[np.ndarray] = None      # (ny+1,)
+
+    @property
+    def uniform(self) -> bool:
+        return self.xs is None
 
     @property
     def num_vertices(self) -> int:
@@ -66,15 +76,20 @@ class Mesh2D:
         """(nc, 3, 2) coordinates of each cell's vertices."""
         return self.vertices[self.cells]
 
+    def facet_midpoints(self) -> np.ndarray:
+        return 0.5 * (self.vertices[self.bf_vertices[:, 0]]
+                      + self.vertices[self.bf_vertices[:, 1]])
+
+    def facet_lengths(self) -> np.ndarray:
+        d = (self.vertices[self.bf_vertices[:, 1]]
+             - self.vertices[self.bf_vertices[:, 0]])
+        return np.linalg.norm(d, axis=1)
+
 
 def _triangulate(active: np.ndarray, xs: np.ndarray, ys: np.ndarray,
                  diagonal: str):
     """Vertices/cells/square_to_cell from an active-square mask (ny, nx)
     over the grid lines xs (nx+1,), ys (ny+1,)."""
-    if diagonal != "right":
-        raise NotImplementedError(
-            f"ocean_torch meshes support the 'right' diagonal only, "
-            f"got {diagonal!r}")
     ny, nx = active.shape
     used = np.zeros((ny + 1, nx + 1), dtype=bool)
     iy, ix = np.nonzero(active)
@@ -90,8 +105,14 @@ def _triangulate(active: np.ndarray, xs: np.ndarray, ys: np.ndarray,
     v10 = vid[iy, ix + 1]
     v01 = vid[iy + 1, ix]
     v11 = vid[iy + 1, ix + 1]
-    t0 = np.stack([v00, v10, v11], axis=1)   # below the diagonal (t <= s)
-    t1 = np.stack([v00, v11, v01], axis=1)   # above the diagonal
+    if diagonal == "right":                  # diagonal v00 -- v11
+        t0 = np.stack([v00, v10, v11], axis=1)   # below it (t <= s)
+        t1 = np.stack([v00, v11, v01], axis=1)
+    elif diagonal == "left":                 # diagonal v10 -- v01
+        t0 = np.stack([v00, v10, v01], axis=1)   # s + t <= 1
+        t1 = np.stack([v10, v11, v01], axis=1)
+    else:
+        raise ValueError(f"unknown diagonal {diagonal!r}")
 
     nc_active = iy.shape[0]
     cells = np.empty((2 * nc_active, 3), dtype=np.int64)
@@ -138,7 +159,8 @@ def _build_topology(vertices: np.ndarray, cells: np.ndarray):
 
 
 def _finalize(vertices, cells, square_to_cell, origin, spacing, grid_shape,
-              diagonal, domain, extent, lshape_corner=(1.0, 1.0)) -> Mesh2D:
+              diagonal, domain, extent, lshape_corner=(1.0, 1.0),
+              hole=None, xs=None, ys=None) -> Mesh2D:
     v = vertices[cells]
     det = ((v[:, 1, 0] - v[:, 0, 0]) * (v[:, 2, 1] - v[:, 0, 1])
            - (v[:, 1, 1] - v[:, 0, 1]) * (v[:, 2, 0] - v[:, 0, 0]))
@@ -162,7 +184,40 @@ def _finalize(vertices, cells, square_to_cell, origin, spacing, grid_shape,
         domain=domain,
         extent=extent,
         lshape_corner=lshape_corner,
+        hole=hole,
+        xs=xs,
+        ys=ys,
     )
+
+
+def graded_lines(a: float, b: float, center: float, lc_min: float,
+                 lc_max: float, dist_min: float, dist_max: float
+                 ) -> np.ndarray:
+    """1-D grid lines with gmsh-style distance-threshold size control:
+    local spacing lc_min within ``dist_min`` of ``center``, ramping
+    linearly to lc_max at ``dist_max``. March from ``a`` stepping by the
+    local size, then snap the last line to ``b`` (dropping the one before
+    it if the final interval would be shorter than half the local size
+    at ``b``)."""
+    if not dist_max > dist_min:
+        raise ValueError(
+            f"graded_lines needs dist_max > dist_min (got {dist_min}, "
+            f"{dist_max}): the ramp divides by their difference")
+    pts = [a]
+    x = a
+    while x < b - 1e-12:
+        d = abs(x - center)
+        f = min(max((d - dist_min) / (dist_max - dist_min), 0.0), 1.0)
+        x = min(x + lc_min + (lc_max - lc_min) * f, b)
+        pts.append(x)
+    arr = np.asarray(pts)
+    d_b = abs(b - center)
+    f_b = min(max((d_b - dist_min) / (dist_max - dist_min), 0.0), 1.0)
+    lc_b = lc_min + (lc_max - lc_min) * f_b
+    if len(arr) > 2 and arr[-1] - arr[-2] < 0.5 * lc_b:
+        arr = np.delete(arr, -2)
+    arr[-1] = b
+    return arr
 
 
 def rectangle_mesh(p0: Tuple[float, float], p1: Tuple[float, float],
@@ -212,6 +267,82 @@ def l_shape_mesh(resolution: int = 50, diagonal: str = "right") -> Mesh2D:
 def unit_square_mesh(n: int, diagonal: str = "right") -> Mesh2D:
     """Equivalent of ``dolfin.UnitSquareMesh(n, n)``."""
     return rectangle_mesh((0.0, 0.0), (1.0, 1.0), n, n, diagonal)
+
+
+PIPE_INLET_MARKER = 0
+PIPE_OUTLET_MARKER = 1          # defined by gen-1, marks no facet
+PIPE_WALL_MARKER = 2
+PIPE_OBSTACLE_MARKER = 3
+
+
+def pipe_mesh(resolution: int = 22, obstacle: bool = False,
+              diagonal: str = "right", graded: bool = False,
+              lc_min: float = None, lc_max: float = None):
+    """The gen-1 pipe [0,2]×[0,2] with tagged boundaries and an optional
+    circular obstacle: inlet {x=0} ∪ {x=2} (marker 0), walls {y=0} ∪
+    {y=2} (marker 2), obstacle boundary marker 3; the disk at (0.2, 0.2),
+    radius 0.05. Returns (mesh, facet_tags). ``resolution`` is the number
+    of squares an axis of the uniform grid.
+
+    ``graded=True``: tensor-product grid lines from ``graded_lines`` with
+    lc_min (default r/3) within distance r of the disk's centre, ramping
+    to lc_max (default 0.09) at distance 2H. ``spacing`` then holds the
+    largest interval of each axis and locates nothing: point location
+    searches the lines (``xs``, ``ys``)."""
+    L = H = 2.0
+    c_x = c_y = 0.2
+    r = 0.05
+    n = resolution
+    if graded:
+        if lc_min is None:
+            lc_min = r / 3
+        if lc_max is None:
+            lc_max = min(0.25 * H, 0.09)
+        xs = graded_lines(0.0, L, c_x, lc_min, lc_max, r, 2 * H)
+        ys = graded_lines(0.0, H, c_y, lc_min, lc_max, r, 2 * H)
+    else:
+        xs = np.linspace(0.0, L, n + 1)
+        ys = np.linspace(0.0, H, n + 1)
+    nx, ny = len(xs) - 1, len(ys) - 1
+    cx = 0.5 * (xs[:-1] + xs[1:])[None, :]
+    cy = 0.5 * (ys[:-1] + ys[1:])[:, None]
+    active = np.ones((ny, nx), dtype=bool)
+    hole = None
+    if obstacle:
+        # every square whose distance to the disk's centre is below r goes
+        hwx = 0.5 * np.diff(xs)[None, :]
+        hwy = 0.5 * np.diff(ys)[:, None]
+        dx = np.maximum(np.abs(cx - c_x) - hwx, 0.0)
+        dy = np.maximum(np.abs(cy - c_y) - hwy, 0.0)
+        active &= (dx ** 2 + dy ** 2) >= r ** 2
+        hole = (c_x, c_y, r)
+    vertices, cells, s2c = _triangulate(active, xs, ys, diagonal)
+    # the uniform grid keeps the exact L/n of the closed-form location
+    spacing = ((float(np.diff(xs).max()), float(np.diff(ys).max()))
+               if graded else (L / n, H / n))
+    mesh = _finalize(vertices, cells, s2c, origin=(0.0, 0.0),
+                     spacing=spacing, grid_shape=(nx, ny),
+                     diagonal=diagonal, domain="pipe",
+                     extent=(0.0, 0.0, L, H), hole=hole,
+                     xs=(xs if graded else None),
+                     ys=(ys if graded else None))
+    eps = 1e-12
+    tags = np.full(mesh.bf_vertices.shape[0], -1, dtype=np.int64)
+    tags = mark_boundary_facets(
+        mesh, lambda x: (np.abs(x[:, 1]) < eps)
+        | (np.abs(x[:, 1] - H) < eps), tag=PIPE_WALL_MARKER,
+        base_tags=tags)
+    tags = mark_boundary_facets(
+        mesh, lambda x: (np.abs(x[:, 0]) < eps)
+        | (np.abs(x[:, 0] - L) < eps), tag=PIPE_INLET_MARKER,
+        base_tags=tags)
+    if obstacle:
+        # facets off the outer rectangle belong to the obstacle
+        mids = mesh.facet_midpoints()
+        interior = ((mids[:, 0] > eps) & (mids[:, 0] < L - eps)
+                    & (mids[:, 1] > eps) & (mids[:, 1] < H - eps))
+        tags[interior] = PIPE_OBSTACLE_MARKER
+    return mesh, tags
 
 
 def mark_boundary_facets(mesh: Mesh2D,

@@ -91,7 +91,8 @@ def adjoint_ode_steps(ge: GridEval, g_img: torch.Tensor, x: torch.Tensor,
         return adjoint_ode_steps_plain(ge, g_img, x, resid, vlimit, h)
     g_img, x, resid = (t.contiguous() for t in (g_img, x, resid))
     vlimit = vlimit.to(torch.int32).contiguous()
-    kernels.require_cuda("adjoint_ode", g_img, x, resid, vlimit)
+    kernels.require_cuda("adjoint_ode", g_img, x, resid, vlimit,
+                         *kernels.grid_tables(ge.locator))
     if any(t.dtype != torch.float64 for t in (g_img, x, resid)):
         raise ValueError("adjoint_ode: float64 inputs required")
     Gy, Gx = ge.vg_shape

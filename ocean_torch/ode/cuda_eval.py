@@ -34,7 +34,8 @@ def eval_p1_tensor_cuda(ge: GridEval, g_grid: torch.Tensor,
     if pts.data_ptr() % 16:                # the kernel reads double2
         pts = pts.clone()
     g_grid = g_grid.contiguous()
-    kernels.require_cuda("p1_eval", g_grid, pts)
+    kernels.require_cuda("p1_eval", g_grid, pts,
+                         *kernels.grid_tables(ge.locator))
     if g_grid.dtype != torch.float64 or pts.dtype != torch.float64:
         raise ValueError("p1_eval: float64 inputs required")
     Gy, Gx = ge.vg_shape

@@ -28,7 +28,7 @@ import numpy as np
 from .. import kernels
 from ..mesh.locate import _EPS, in_domain
 from .grideval import (GridEval, velocity_to_grid, eval_velocity_grid,
-                       grid_coords)
+                       grid_coords, upper_triangle)
 from .primal import PrimalODEResult, euler_steps, finish_trajectories
 
 # int primal_ode_launch(u_img, x0, xs, us, failed, kfail, K, nt, Hx, Geom,
@@ -48,10 +48,13 @@ SHARED_LIMIT = 227 * 1024
 def shared_bytes(ge: GridEval) -> int:
     """Dynamic shared memory of a block, by the size rule of
     ``primal_ode_launch``: the staging rows (x and u of ``THREADS`` buoys,
-    ``STEPS`` steps, odd row stride) and, where it fits beside them, the
-    half-grid velocity image (16 B a node)."""
-    stage = (THREADS // 32) * 2 * 32 * (STEPS | 1) * 16
+    ``STEPS`` steps, odd row stride), a graded grid's lines (8 B each)
+    and, where it fits beside them, the half-grid velocity image (16 B a
+    node)."""
     Hy, Hx = ge.hg_shape
+    stage = (THREADS // 32) * 2 * 32 * (STEPS | 1) * 16
+    if not ge.locator.uniform:
+        stage += 8 * ((Hx + 1) // 2 + (Hy + 1) // 2)
     with_image = stage + Hy * Hx * 16
     return with_image if with_image <= SHARED_LIMIT else stage
 
@@ -62,24 +65,32 @@ def eval_velocity_six_nodes(ge: GridEval, u_img: torch.Tensor,
     weights are structurally zero (the nodes outside the owning triangle),
     so the kernel sums the other six, in the same row-major order: the
     dropped terms are ±0 and change no value (a zero may change its sign).
-    With the barycentrics (l0, l1, l2) = (1−s, s−t, t) below the diagonal
-    and (1−t, t−s, s) above it, the six weights are the same expressions
-    in both triangles and only two of them trade places; 4·l is exact, so
+    With the barycentrics (l0, l1, l2) below and above the diagonal
+    ("right": (1−s, s−t, t) and (1−t, t−s, s); "left": (1−s−t, s, t) and
+    (1−t, 1−s, s+t−1)), the six weights are the same expressions in both
+    triangles and only two of them trade places; 4·l is exact, so
     (4·l1)·l2 and (4·l2)·l1 are one rounding of one product."""
     loc = ge.locator
     inside = in_domain(loc, points)
     ix, iy, s, t = grid_coords(loc, points)
-    up = t > s
-    l0 = torch.where(up, 1.0 - t, 1.0 - s)
-    l1 = torch.where(up, t - s, s - t)
-    l2 = torch.where(up, s, t)
+    up = upper_triangle(s, t, loc.diagonal)
+    Hx = ge.hg_shape[1]
+    if loc.diagonal == "right":
+        l0 = torch.where(up, 1.0 - t, 1.0 - s)
+        l1 = torch.where(up, t - s, s - t)
+        l2 = torch.where(up, s, t)
+        lower = (0, 1, 2, Hx + 1, Hx + 2, 2 * Hx + 2)
+        upper = (0, Hx, Hx + 1, 2 * Hx, 2 * Hx + 1, 2 * Hx + 2)
+    else:
+        l0 = torch.where(up, 1.0 - t, 1.0 - s - t)
+        l1 = torch.where(up, 1.0 - s, s)
+        l2 = torch.where(up, s + t - 1.0, t)
+        lower = (0, 1, 2, Hx, Hx + 1, 2 * Hx)
+        upper = (2, Hx + 1, Hx + 2, 2 * Hx, 2 * Hx + 1, 2 * Hx + 2)
     v0, v1, v2 = (l * (2.0 * l - 1.0) for l in (l0, l1, l2))
     e01, e02, e12 = 4.0 * l0 * l1, 4.0 * l0 * l2, 4.0 * l1 * l2
     w = (v0, e01, torch.where(up, e02, v1), torch.where(up, v1, e02), e12,
          v2)
-    Hx = ge.hg_shape[1]
-    lower = (0, 1, 2, Hx + 1, Hx + 2, 2 * Hx + 2)
-    upper = (0, Hx, Hx + 1, 2 * Hx, 2 * Hx + 1, 2 * Hx + 2)
     base = (2 * iy) * Hx + 2 * ix
     acc = None
     for wi, lo, hi in zip(w, lower, upper):
@@ -124,7 +135,8 @@ def primal_ode_steps(ge: GridEval, u_img: torch.Tensor, x0: torch.Tensor,
         return primal_ode_steps_plain(ge, u_img, x0, h, nt)
     u_img = u_img.contiguous()
     x0 = x0.contiguous()
-    kernels.require_cuda("primal_ode", u_img, x0)
+    kernels.require_cuda("primal_ode", u_img, x0,
+                         *kernels.grid_tables(ge.locator))
     if u_img.dtype != torch.float64 or x0.dtype != torch.float64:
         raise ValueError("primal_ode: float64 inputs required")
     Hy, Hx = ge.hg_shape

@@ -86,10 +86,17 @@ def finish_trajectories(loc: Locator, eval_u: Callable, x: torch.Tensor,
 
 def solve_primal_ode(space: TaylorHoodSpace, u: torch.Tensor,
                      x0: torch.Tensor, h: float, nt: int,
-                     center: torch.Tensor) -> PrimalODEResult:
-    """Reference path: point evaluation through the locate/dofmap tables.
+                     center: torch.Tensor, grid=None) -> PrimalODEResult:
+    """Reference path: point evaluation through the locate/dofmap tables,
+    or, with ``grid`` (an ``ode.grideval.GridEval``), through the
+    table-free half-grid stencil (the same values to rounding).
     u: (n_p2, 2) velocity dofs; x0: (K, 2) seeds; nt time samples."""
-    eval_u = lambda pts: eval_velocity(space, u, pts)
+    if grid is not None:
+        from .grideval import eval_velocity_grid, velocity_to_grid
+        u_img = velocity_to_grid(grid, u)
+        eval_u = lambda pts: eval_velocity_grid(grid, u_img, pts)
+    else:
+        eval_u = lambda pts: eval_velocity(space, u, pts)
     x, us, failed, kfail = euler_steps(eval_u, x0, h, nt)
     return finish_trajectories(space.locator, eval_u, x, us, failed, kfail,
                                center)

@@ -1,7 +1,7 @@
 """The coupled OCP system: problem container and the stage functions of
 the gradient-descent iteration (port of the dense branch of
 ``ocean_jax/system.py``, reference and consistent adjoint modes, on the
-[0,2]² square and the L-shape).
+[0,2]² square and the L-shape, either diagonal).
 
     _solve_ns          primal Navier–Stokes chord Newton solve
     _forward           NS + primal buoy ODE
@@ -15,9 +15,10 @@ the gradient-descent iteration (port of the dense branch of
 
 PyTorch runs eagerly, so host loops and Python ``if`` on ``.item()``
 values replace ``lax.while_loop``/``lax.scan``/``lax.cond``. Branches the
-port does not have yet (the "left" diagonal, graded, hole and pipe
-meshes, multigrid, continuation, float32 chord sweeps) raise
-``NotImplementedError``.
+port does not have yet (multigrid, continuation, float32 chord sweeps)
+raise ``NotImplementedError``. The pipe meshes have no problem constructor
+here, as in the JAX package: they reach the mesh, ODE and point-source
+functions directly.
 """
 
 from __future__ import annotations
@@ -77,7 +78,8 @@ class OCPProblem:
     # "scatter" | "binned" | "sorted" | "ozaki" | "ozaki_pallas" (the
     # segment-sum kernel) | "fused" (the point-source kernel)
     psrc_method: str = "scatter"
-    ode_backend: str = "gather"      # "gather" | "pallas" (CUDA kernels)
+    # "gather" | "grid" (the half-grid stencil) | "pallas" (CUDA kernels)
+    ode_backend: str = "gather"
     grid: Optional[GridEval] = None  # half-grid tables of the kernels
     adjoint_reuse_lu: bool = False   # adjoint through the transposed fac0
     adjoint_mode: str = "reference"  # "reference" | "consistent"
@@ -163,7 +165,7 @@ def resolve_adjoint_reuse(mode: str, nu: float) -> bool:
 def _check_supported(cfg: OCPConfig) -> None:
     unsupported = {
         "adjoint_mode": (cfg.adjoint_mode, ("reference", "consistent")),
-        "ode_backend": (cfg.ode_backend, ("gather", "pallas")),
+        "ode_backend": (cfg.ode_backend, ("gather", "grid", "pallas")),
         "psrc_method": (cfg.psrc_method, ("scatter", "binned", "sorted",
                                           "ozaki", "ozaki_pallas", "fused")),
         "linear_solver": (cfg.linear_solver, ("auto", "dense")),
@@ -307,12 +309,17 @@ def _solve_ns(prob: OCPProblem, f_quad: torch.Tensor) -> NewtonResult:
 
 def _primal_ode(prob: OCPProblem, u: torch.Tensor):
     """Primal buoy ODE on the configured backend: the CUDA kernel
-    ("pallas", the JAX name of the fused path) or the table path."""
+    ("pallas", the JAX name of the fused path), the half-grid stencil in
+    plain PyTorch ("grid", the kernel's plain version) or the table path.
+    The adjoint of "grid" runs on the table path, as in the JAX
+    package."""
     if prob.ode_backend == "pallas":
         return solve_primal_ode_cuda(prob.grid, u, prob.x0, prob.h, prob.nt,
                                      prob.center)
     return solve_primal_ode(prob.space, u, prob.x0, prob.h, prob.nt,
-                            prob.center)
+                            prob.center,
+                            grid=(prob.grid if prob.ode_backend == "grid"
+                                  else None))
 
 
 def _forward(prob: OCPProblem, f_quad: torch.Tensor) -> ForwardState:

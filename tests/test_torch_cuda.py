@@ -19,6 +19,11 @@ inputs and on the scatter hard inputs (one square or segment, one per
 lane, points on nodes and the diagonal, ragged M, zero and negative
 weights, dropped ids, ±scale). The ∇u evaluation is one patch sum per
 point in the plain version's order: bit-identical, inside flags included.
+The same holds on the "left" diagonal (rectangle and L-shape, points on
+the anti-diagonals) and on the pipe meshes (graded lines, the obstacle's
+fringe, buoys entering its removed squares at known steps, NaN starts:
+there NaN equals NaN, ``torch_kernel_cases.same``), and the plain
+location on the card is the CPU's there too.
 """
 
 import numpy as np
@@ -299,3 +304,180 @@ def test_plain_lshape_location_is_the_cpus(dev):
     for a, b in zip(grid_coords(ge.locator, pts.to(dev)),
                     grid_coords(ge_cpu.locator, pts)):
         assert torch.equal(a.cpu(), b)
+
+
+# --- the "left" diagonal and the pipes: the four grid kernels ---------------
+
+def _pipe_on(dev, name):
+    mesh, _ = structured.pipe_mesh(**kernel_cases.PIPE_MESHES[name])
+    return mesh, make_grideval(make_space(mesh, dev))
+
+
+def _left_on(dev, nx):
+    return make_grideval(make_space(structured.rectangle_mesh(
+        (0.0, 0.0), (2.0, 2.0), nx, nx, diagonal="left"), dev))
+
+
+def _primal_same(ge, u_img, x0, h, nt):
+    got = primal_ode_steps(ge, u_img, x0, h, nt)
+    again = primal_ode_steps(ge, u_img, x0, h, nt)
+    torch.cuda.synchronize()
+    plain = primal_ode_steps_plain(ge, u_img, x0, h, nt)
+    for a, b, c in zip(got, again, plain):
+        assert kernel_cases.same(a, b) and kernel_cases.same(a, c)
+    return plain
+
+
+@pytest.mark.parametrize("name,case", kernel_cases.pipe_primal_cases())
+def test_primal_kernel_pipe_hard_inputs(dev, name, case):
+    mesh, ge = _pipe_on(dev, name)
+    u_img, x0, h, nt = kernel_cases.pipe_primal_case(case, mesh)
+    _primal_same(ge, u_img.to(dev), x0.to(dev), h, nt)
+
+
+@pytest.mark.parametrize("name", sorted(kernel_cases.PIPE_MESHES))
+@pytest.mark.parametrize("case", kernel_cases.PIPE_ADJOINT_CASES)
+def test_adjoint_kernel_pipe_hard_inputs(dev, name, case):
+    mesh, ge = _pipe_on(dev, name)
+    g_img, x, resid, vlimit, h = (
+        a.to(dev) if torch.is_tensor(a) else a
+        for a in kernel_cases.pipe_adjoint_case(case, mesh))
+    assert torch.equal(adjoint_ode_steps(ge, g_img, x, resid, vlimit, h),
+                       adjoint_ode_steps_plain(ge, g_img, x, resid, vlimit,
+                                               h))
+
+
+@pytest.mark.parametrize("name", sorted(kernel_cases.PIPE_MESHES))
+@pytest.mark.parametrize("case", kernel_cases.PIPE_POINT_CASES)
+def test_point_kernels_pipe_hard_inputs(dev, name, case):
+    """Point sources and ∇u evaluation (with the obstacle's inside flags);
+    the ∇u evaluation also at NaN points."""
+    mesh, ge = _pipe_on(dev, name)
+    pts, r = (a.to(dev) for a in kernel_cases.pipe_point_case(case, mesh))
+    hk, lk = point_source_limbs(ge, pts, r)
+    hp, lp = point_source_limbs_plain(ge, pts, r)
+    assert torch.equal(hk, hp) and torch.equal(lk, lp)
+    Gy, Gx = ge.vg_shape
+    g_img = torch.as_tensor(np.random.default_rng(6).standard_normal(
+        (Gy * Gx, 2, 2)), device=dev)
+    pts = torch.cat([pts, torch.tensor([[np.nan, 1.0], [0.2, np.nan],
+                                        [np.inf, 0.3]], device=dev,
+                                       dtype=torch.float64)])
+    vk, ik = eval_p1_tensor_cuda(ge, g_img, pts)
+    vp, ip = eval_p1_tensor_grid(ge, g_img, pts)
+    assert kernel_cases.same(vk, vp) and torch.equal(ik, ip)
+
+
+@pytest.mark.parametrize("case", kernel_cases.PRIMAL_CASES
+                         + ("anti_diagonal",))
+def test_primal_kernel_left_hard_inputs(dev, case):
+    if case == "anti_diagonal":
+        ge = _left_on(dev, 16)
+        u_img, x0, h, nt = kernel_cases.left_primal_case(16)
+    else:
+        ge = _left_on(dev, kernel_cases.ode_case_nx(case, 16))
+        u_img, x0, h, nt = kernel_cases.primal_ode_case(case, 16)
+    _primal_same(ge, u_img.to(dev), x0.to(dev), h, nt)
+
+
+@pytest.mark.parametrize("case", kernel_cases.ADJOINT_CASES)
+def test_adjoint_kernel_left_hard_inputs(dev, case):
+    ge = _left_on(dev, kernel_cases.ode_case_nx(case, 16))
+    g_img, x, resid, vlimit, h = (
+        a.to(dev) if torch.is_tensor(a) else a
+        for a in kernel_cases.adjoint_ode_case(case, 16))
+    assert torch.equal(adjoint_ode_steps(ge, g_img, x, resid, vlimit, h),
+                       adjoint_ode_steps_plain(ge, g_img, x, resid, vlimit,
+                                               h))
+
+
+@pytest.mark.parametrize("case", kernel_cases.PSRC_CASES)
+def test_point_kernels_left_hard_inputs(dev, case):
+    ge = _left_on(dev, 16)
+    pts, r = (a.to(dev) for a in kernel_cases.point_source_case(case, 16))
+    pts = torch.cat([pts, torch.as_tensor(
+        kernel_cases.anti_diagonal_points(16), device=dev)])
+    r = torch.cat([r, torch.full((len(pts) - len(r), 2), 0.5,
+                                 dtype=torch.float64, device=dev)])
+    hk, lk = point_source_limbs(ge, pts, r)
+    hp, lp = point_source_limbs_plain(ge, pts, r)
+    assert torch.equal(hk, hp) and torch.equal(lk, lp)
+    Gy, Gx = ge.vg_shape
+    g_img = torch.as_tensor(np.random.default_rng(7).standard_normal(
+        (Gy * Gx, 2, 2)), device=dev)
+    vk, ik = eval_p1_tensor_cuda(ge, g_img, pts)
+    vp, ip = eval_p1_tensor_grid(ge, g_img, pts)
+    assert torch.equal(vk, vp) and torch.equal(ik, ip)
+
+
+@pytest.mark.parametrize("case", kernel_cases.LSHAPE_PRIMAL_CASES)
+def test_primal_kernel_left_lshape_hard_inputs(dev, case):
+    ge = make_grideval(make_space(structured.l_shape_mesh(
+        kernel_cases.lshape_case_res(case, 16), diagonal="left"), dev))
+    u_img, x0, h, nt = kernel_cases.lshape_primal_case(case, 16)
+    plain = _primal_same(ge, u_img.to(dev), x0.to(dev), h, nt)
+    assert bool(plain[2].any())
+
+
+def test_graded_pipe_primal_from_device_memory(dev):
+    """The gmsh-default graded pipe (73 squares an axis): the image does
+    not fit in shared memory, the kernel reads it from device memory."""
+    from ocean_torch.ode.cuda_ode import shared_bytes
+    mesh, _ = structured.pipe_mesh(obstacle=True, graded=True)
+    ge = make_grideval(make_space(mesh, dev))
+    Hy, Hx = ge.hg_shape
+    assert shared_bytes(ge) < 16 * Hy * Hx
+    u_img, x0, h, nt = kernel_cases.pipe_primal_case("random", mesh)
+    x0 = torch.cat([x0, torch.as_tensor(kernel_cases.fringe_points(mesh,
+                                                                   40))])
+    plain = _primal_same(ge, u_img.to(dev), x0.to(dev), h, nt)
+    assert bool(plain[2].any())
+
+
+def test_plain_graded_location_and_obstacle_are_the_cpus(dev):
+    """torch.searchsorted, the gathers and the obstacle's ``** 2`` give the
+    CPU's squares, local coordinates and inside flags on the card."""
+    from ocean_torch.ode.grideval import grid_coords
+    from ocean_torch.mesh.locate import in_domain
+    for name in ("hole", "hole_graded"):
+        mesh, ge = _pipe_on(dev, name)
+        _, ge_cpu = _pipe_on("cpu", name)
+        pts = torch.cat([kernel_cases.pipe_point_case(c, mesh)[0]
+                         for c in kernel_cases.PIPE_POINT_CASES])
+        for a, b in zip(grid_coords(ge.locator, pts.to(dev)),
+                        grid_coords(ge_cpu.locator, pts)):
+            assert torch.equal(a.cpu(), b)
+        assert torch.equal(in_domain(ge.locator, pts.to(dev)).cpu(),
+                           in_domain(ge_cpu.locator, pts))
+    d = torch.as_tensor(np.random.default_rng(8).standard_normal(10 ** 5)
+                        * 10.0 ** np.random.default_rng(9).integers(
+                            -300, 300, 10 ** 5), device=dev)
+    assert torch.equal(d ** 2, d * d)
+
+
+@pytest.mark.parametrize("case", kernel_cases.LSHAPE_ADJOINT_CASES)
+def test_adjoint_kernel_left_lshape_hard_inputs(dev, case):
+    ge = make_grideval(make_space(structured.l_shape_mesh(
+        kernel_cases.lshape_case_res(case, 16), diagonal="left"), dev))
+    g_img, x, resid, vlimit, h = (
+        a.to(dev) if torch.is_tensor(a) else a
+        for a in kernel_cases.lshape_adjoint_case(case, 16))
+    assert torch.equal(adjoint_ode_steps(ge, g_img, x, resid, vlimit, h),
+                       adjoint_ode_steps_plain(ge, g_img, x, resid, vlimit,
+                                               h))
+
+
+@pytest.mark.parametrize("case", kernel_cases.LSHAPE_POINT_CASES)
+def test_point_kernels_left_lshape_hard_inputs(dev, case):
+    ge = make_grideval(make_space(structured.l_shape_mesh(
+        16, diagonal="left"), dev))
+    pts, r = (a.to(dev) for a in kernel_cases.lshape_point_case(case, 16))
+    hk, lk = point_source_limbs(ge, pts, r)
+    hp, lp = point_source_limbs_plain(ge, pts, r)
+    assert torch.equal(hk, hp) and torch.equal(lk, lp)
+    Gy, Gx = ge.vg_shape
+    g_img = torch.as_tensor(np.random.default_rng(10).standard_normal(
+        (Gy * Gx, 2, 2)), device=dev)
+    vk, ik = eval_p1_tensor_cuda(ge, g_img, pts)
+    vp, ip = eval_p1_tensor_grid(ge, g_img, pts)
+    assert torch.equal(vk, vp) and torch.equal(ik, ip)

@@ -243,7 +243,7 @@ def test_cli_flags_give_the_jax_config(argv):
     (["--linear-solver", "mg"], "linear_solver"),
     (["--newton-continuation", "3"], "newton_continuation"),
     (["--newton-chord-f32"], "newton_chord_f32"),
-    (["--ode-backend", "grid"], "ode_backend"),
+    (["--projector-solver", "cg"], "solver='cg'"),
 ])
 def test_cli_unported_flags_raise_by_name(tmp_path, flags, name):
     with pytest.raises(NotImplementedError, match=name):

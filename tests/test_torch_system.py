@@ -101,20 +101,58 @@ def test_unported_branches_raise():
     base = dict(u_d=np.zeros((100, 200, 2)), x0=seed_positions(100),
                 device="cpu")
     for kw in (dict(newton_chord_f32=True),
-               dict(linear_solver="mg"), dict(newton_continuation=3),
-               dict(ode_backend="grid"), dict(mesh_diagonal="left"),
-               dict(L_shape=True, mesh_diagonal="left")):
+               dict(linear_solver="mg"), dict(newton_continuation=3)):
         with pytest.raises(NotImplementedError):
             system.build_problem(OCPConfig(**{**FAST, **kw}), **base)
-    # the L-shape and the Armijo line search are ported: neither raises
+    # the L-shape, the "left" diagonal, the "grid" ODE backend and the
+    # Armijo line search are ported: none raises
     p = system.build_problem(
         OCPConfig(**{**FAST, "L_shape": True, "L_shape_resolution": 4}),
         **base)
     assert p.space.locator.domain == "lshape"
+    for kw in (dict(ode_backend="grid"), dict(mesh_diagonal="left"),
+               dict(L_shape=True, L_shape_resolution=4,
+                    mesh_diagonal="left")):
+        q = system.build_problem(OCPConfig(**{**FAST, **kw}), **base)
+        assert q.space.locator.diagonal == kw.get("mesh_diagonal", "right")
+        assert q.ode_backend == kw.get("ode_backend", "pallas")
     p = system.build_problem(OCPConfig(**FAST), **base)
     res = system.gd_step(p, system.initial_control(p, 4), 5.0,
                          use_line_search=True)
     assert res.inner_iterations >= 1
+
+
+def test_gd_step_at_viscosity_0_1_matches_jax(monkeypatch):
+    """At ν = 0.1 ``adjoint_reuse_lu="auto"`` resolves to off and the
+    adjoint runs through ``solve_operator`` (a fresh factorization), with
+    the chord Newton taking many more iterations: one GD step of the
+    kernels' plain versions against JAX's float64 table paths."""
+    rng = np.random.default_rng(7)
+    x0 = seed_positions(100)
+    u_d = 0.1 + 0.02 * rng.standard_normal((100, 200, 2))
+    u_d[..., 1] -= 0.1
+    kw = dict(FAST, viscosity=0.1, newton_reuse_lu=True)
+    pj = jax_system.build_problem(
+        JaxConfig(**{**kw, "ode_backend": "gather",
+                     "psrc_method": "scatter"}), u_d=u_d, x0=x0)
+    fj = jax_system.initial_control(pj, case=4)
+    rj = jax_system.gd_step(pj, fj, jnp.asarray(5.0), use_line_search=False)
+    ud_t, x0_t = convert.problem_data(u_d, x0)
+    pt = system.build_problem(OCPConfig(**kw), u_d=ud_t, x0=x0_t,
+                              device="cpu")
+    assert pt.nu == 0.1 and not pt.adjoint_reuse_lu
+    calls = []
+    real = system.solve_operator
+    monkeypatch.setattr(system, "solve_operator",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    rt = system.gd_step(pt, convert.control(fj.quad, fj.p2), 5.0)
+    assert calls == [1]
+    assert not rt.diverged and rt.fwd.newton.converged
+    assert rt.fwd.newton.iterations > 3
+    assert abs(float(rt.J) - float(rj.J)) / abs(float(rj.J)) < 1e-10
+    assert _rel(rt.f_new.quad, rj.f_new.quad) < 1e-8
+    assert _rel(rt.z, rj.z) < 1e-8
+    assert np.array_equal(rt.fwd.mask.numpy(), np.asarray(rj.fwd.mask))
 
 
 def test_import_leaves_jax_out():

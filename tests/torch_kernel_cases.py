@@ -4,10 +4,13 @@ seeds: what is hard for the warp grouping and the integer splits, and
 for the buoy tiles, time chunks, escape tests and point location of the
 ODE kernels. The CPU tests run them through the plain arithmetic mirrors,
 the card-only tests and ``chip_smoke.py`` through the kernels; each is
-held to the plain version with ``torch.equal``.
+held to the plain version with ``torch.equal`` (``same`` where NaN
+positions make NaN outputs). The rectangle's and the L-shape's cases run
+on either diagonal; the pipe cases (graded lines, the obstacle's fringe
+and removed squares, NaN) on the meshes of ``PIPE_MESHES``.
 
-Every case is small (M ≤ 4,096 points, K ≤ 77 buoys). Tensors are made on
-the CPU; the caller moves them.
+Every case is small (M ≤ 4,096 points, K ≤ 300 buoys). Tensors are made
+on the CPU; the caller moves them.
 """
 
 from __future__ import annotations
@@ -402,3 +405,255 @@ def lshape_adjoint_case(case: str, res: int):
     return (torch.as_tensor(g_img), torch.as_tensor(x),
             torch.as_tensor(resid),
             torch.as_tensor(vlimit, dtype=torch.int32), h)
+
+
+# ---------------------------------------------------------------------------
+# the "left" diagonal (v10 -- v01): points on s + t = 1 of every square
+# ---------------------------------------------------------------------------
+
+def anti_diagonal_points(nx: int, length: float = 2.0, n: int = 64,
+                         seed: int = 47) -> np.ndarray:
+    """Points on the "left" diagonal s + t = 1 of random squares of the
+    nx × nx grid of [0, length]², on its ends (grid nodes) and a few ulps
+    off it."""
+    rng = np.random.default_rng(seed)
+    h = length / nx
+    i = rng.integers(0, nx, (n, 2))
+    s = rng.uniform(0.0, 1.0, n)
+    s[:4] = [0.0, 1.0, 0.5, 0.25]
+    pts = np.stack([(i[:, 0] + s) * h, (i[:, 1] + 1.0 - s) * h], 1)
+    off = np.nextafter(pts, np.where(rng.random((n, 2)) < 0.5, -np.inf,
+                                     np.inf))
+    return np.concatenate([pts, off])
+
+
+def left_primal_case(nx: int, length: float = 2.0):
+    """(u_img, x0, h, nt) for the "left" diagonal: starts on the
+    anti-diagonals, a flow along them (−1, +1) that keeps them near, on the
+    nx × nx grid of [0, length]²."""
+    H = 2 * nx + 1
+    gy, gx = np.meshgrid(np.linspace(0.0, length, H),
+                         np.linspace(0.0, length, H), indexing="ij")
+    img = np.stack([-0.7 + 0.05 * np.sin(2.0 * gy), 0.7 + 0.0 * gx], -1)
+    return (torch.as_tensor(img.reshape(H * H, 2)),
+            torch.as_tensor(anti_diagonal_points(nx, length)), 0.01, 40)
+
+
+# ---------------------------------------------------------------------------
+# the gen-1 pipe [0,2]²: graded tensor grids and the obstacle (the disk at
+# (0.2, 0.2), radius 0.05, and the staircase of squares that touch it)
+# ---------------------------------------------------------------------------
+
+# pipe_mesh keyword arguments of the meshes the pipe cases run on, at the
+# JAX package's test sizes
+PIPE_MESHES = {
+    "hole": dict(resolution=12, obstacle=True),
+    "graded": dict(graded=True, lc_min=0.08, lc_max=0.3),
+    "hole_graded": dict(obstacle=True, graded=True, lc_min=0.08,
+                        lc_max=0.3),
+    "hole_graded_left": dict(obstacle=True, graded=True, lc_min=0.08,
+                             lc_max=0.3, diagonal="left"),
+}
+
+# seeds in the fringe between the disk and the staircase (outside from
+# step 0); buoys that enter the removed squares at the first, a middle and
+# the last step; starts on grid lines, on the first and the last line and
+# at −0.0; NaN and infinite starts; random starts in a random flow
+PIPE_PRIMAL_CASES = ("fringe", "enter_hole_first", "enter_hole_middle",
+                     "enter_hole_last", "on_lines", "nan", "random")
+
+
+
+def pipe_primal_cases():
+    """(mesh name, case) pairs: the fringe and the staircase are cases of
+    the meshes with an obstacle."""
+    return [(name, case) for name, kw in sorted(PIPE_MESHES.items())
+            for case in PIPE_PRIMAL_CASES
+            if kw.get("obstacle") or case in ("on_lines", "nan", "random")]
+
+# walks across the removed squares (the carry of the last in-domain ∇u),
+# seeds in the fringe, points on grid lines, NaN positions, every window
+PIPE_ADJOINT_CASES = ("walk", "fringe", "on_lines", "nan", "vlimit_mixed")
+
+# for the point sources and the ∇u evaluation (no NaN: an escaped buoy
+# carries no source, and its sources are not at NaN)
+PIPE_POINT_CASES = ("random", "fringe", "on_lines")
+
+HOLE = (0.2, 0.2, 0.05)
+
+# the JAX package's record of its pipe kernels on its TPU
+# (scripts/pallas_domains_hw.py, results/bench_stages/pallas_domains_hw.json):
+# pipe_mesh keyword arguments and the escapes of K=512 buoys
+PIPE_RECORD = {
+    "pipe_hole_uniform": (dict(resolution=22, obstacle=True), 25),
+    "pipe_graded": (dict(obstacle=False, graded=True, lc_min=0.06,
+                         lc_max=0.2), 19),
+    "pipe_hole_graded": (dict(obstacle=True, graded=True, lc_min=0.06,
+                              lc_max=0.2), 24),
+}
+
+
+def _half_lines(lines: np.ndarray) -> np.ndarray:
+    """The half-grid lines of one axis: the grid lines interleaved with
+    the interval midpoints."""
+    half = np.empty(2 * len(lines) - 1)
+    half[0::2] = lines
+    half[1::2] = 0.5 * (lines[:-1] + lines[1:])
+    return half
+
+
+def _axis_lines(mesh, axis: int) -> np.ndarray:
+    lines = mesh.xs if axis == 0 else mesh.ys
+    if lines is not None:
+        return lines
+    n = mesh.grid_shape[axis]
+    return mesh.origin[axis] + mesh.spacing[axis] * np.arange(n + 1)
+
+
+def fringe_points(mesh, n: int, seed: int = 53) -> np.ndarray:
+    """n points off the disk in squares that hold no cells: outside, though
+    not in the obstacle itself. Without an obstacle: points off the disk
+    in the squares that it would have removed (inside)."""
+    rng = np.random.default_rng(seed)
+    xs, ys = _axis_lines(mesh, 0), _axis_lines(mesh, 1)
+    inactive = mesh.square_to_cell[:, :, 0] < 0
+    if not inactive.any():
+        cx = 0.5 * (xs[:-1] + xs[1:])[None, :]
+        cy = 0.5 * (ys[:-1] + ys[1:])[:, None]
+        inactive = (np.maximum(np.abs(cx - HOLE[0]) - 0.5 * np.diff(xs), 0)
+                    ** 2 + np.maximum(np.abs(cy - HOLE[1])
+                                      - 0.5 * np.diff(ys)[:, None], 0) ** 2
+                    < HOLE[2] ** 2)
+    iy, ix = np.nonzero(inactive)
+    out = []
+    while len(out) < n:
+        k = rng.integers(0, len(ix), 4 * n)
+        p = np.stack([rng.uniform(xs[ix[k]], xs[ix[k] + 1]),
+                      rng.uniform(ys[iy[k]], ys[iy[k] + 1])], 1)
+        far = ((p[:, 0] - HOLE[0]) ** 2 + (p[:, 1] - HOLE[1]) ** 2
+               >= HOLE[2] ** 2)
+        out.extend(p[far])
+    return np.array(out[:n])
+
+
+def line_points(mesh, n: int = 96, seed: int = 59) -> np.ndarray:
+    """Points exactly on grid lines and nodes, on the first and the last
+    line of each axis, at −0.0, and two just beyond the slack."""
+    rng = np.random.default_rng(seed)
+    xs, ys = _axis_lines(mesh, 0), _axis_lines(mesh, 1)
+    on_x = np.stack([rng.choice(xs, n), rng.uniform(0.0, 2.0, n)], 1)
+    on_y = np.stack([rng.uniform(0.0, 2.0, n), rng.choice(ys, n)], 1)
+    nodes = np.stack([rng.choice(xs, n), rng.choice(ys, n)], 1)
+    ends = np.array([[xs[0], 1.3], [xs[-1], 0.7], [1.1, ys[0]],
+                     [0.9, ys[-1]], [-0.0, 1.0], [1.0, -0.0], [-0.0, -0.0],
+                     [xs[-1], ys[-1]], [xs[-1] + 1e-9, 0.5],
+                     [0.5, ys[0] - 1e-9]])
+    return np.concatenate([ends, on_x, on_y, nodes])
+
+
+def _pipe_image(mesh, fn) -> np.ndarray:
+    """Half-grid image of ``fn(gx, gy)`` on the pipe's half-grid (the
+    nodes in removed squares hold values a dof would not; no in-domain
+    evaluation reads them with a weight other than 0)."""
+    hx, hy = _half_lines(_axis_lines(mesh, 0)), _half_lines(
+        _axis_lines(mesh, 1))
+    gy, gx = np.meshgrid(hy, hx, indexing="ij")
+    return np.stack(fn(gx, gy), -1).reshape(-1, 2)
+
+
+def pipe_primal_case(case: str, mesh):
+    """(u_img, x0, h, nt) of one case of ``PIPE_PRIMAL_CASES`` on the pipe
+    ``mesh`` (``mesh.structured.pipe_mesh``)."""
+    rng = np.random.default_rng(61)
+    K, nt, h = 60, 40, 0.01
+    img = _pipe_image(mesh, lambda gx, gy: (
+        0.6 * np.sin(2.0 * gy) - 0.3 + 0.1 * gx,
+        0.5 * np.cos(3.0 * gx) - 0.2 * gy))
+    x0 = rng.uniform(0.02, 1.98, (K, 2))
+    x0[:20] = rng.uniform(0.05, 0.45, (20, 2))         # around the obstacle
+    if case == "fringe":
+        x0[::2] = fringe_points(mesh, len(x0[::2]))
+    elif case.startswith("enter_hole_"):
+        # unit flow (−1, 0): x_k = x0 − k·h to rounding. In the rows of
+        # removed squares, a start that puts x_step half a step short of
+        # the right edge X_e of the row's last removed square (a point on
+        # X_e belongs to the active square on its right) enters the
+        # staircase at step `step`
+        step = {"first": 0, "middle": nt // 2, "last": nt - 2}[case[11:]]
+        img = _pipe_image(mesh, lambda gx, gy: (-np.ones_like(gx),
+                                                np.zeros_like(gx)))
+        xs, ys = _axis_lines(mesh, 0), _axis_lines(mesh, 1)
+        rows = np.nonzero((mesh.square_to_cell[:, :, 0] < 0).any(1))[0]
+        iy = rng.choice(rows, K)
+        y = rng.uniform(ys[iy], ys[iy + 1])
+        last = np.array([np.nonzero(mesh.square_to_cell[r, :, 0] < 0)[0][-1]
+                         for r in iy])
+        x0 = np.stack([xs[last + 1] + h * step - 0.5 * h, y], 1)
+    elif case == "on_lines":
+        img = 1e-3 * img
+        x0 = line_points(mesh)
+        K = len(x0)
+    elif case == "nan":
+        x0[::3, 0] = np.nan
+        x0[1::7, 1] = np.nan
+        x0[2] = [np.inf, 1.0]
+        x0[5] = [1.0, -np.inf]
+    elif case != "random":
+        raise ValueError(case)
+    return torch.as_tensor(img), torch.as_tensor(x0[:K]), h, nt
+
+
+def pipe_adjoint_case(case: str, mesh):
+    """(g_img, x, resid, vlimit, h) of one case of ``PIPE_ADJOINT_CASES``
+    on the pipe ``mesh``."""
+    rng = np.random.default_rng(67)
+    nx, ny = mesh.grid_shape
+    K, nt, h = 50, 120, 0.01
+    g_img = rng.standard_normal(((nx + 1) * (ny + 1), 2, 2))
+    start = rng.uniform(0.05, 0.5, (K, 1, 2))
+    walk = np.cumsum(0.02 * rng.standard_normal((K, nt, 2)), 1)
+    x = np.clip(start + walk, -0.05, 2.05)
+    resid = 0.1 * rng.standard_normal((K, nt, 2))
+    vlimit = np.full(K, nt)
+    if case == "fringe":
+        x[: K // 2, nt // 3:] = np.resize(fringe_points(mesh, 64),
+                                           (K // 2, nt - nt // 3, 2))
+    elif case == "on_lines":
+        x = np.resize(line_points(mesh), (K, nt, 2))
+    elif case == "nan":
+        x[::4, 10:30, 0] = np.nan
+        x[1::4, 50:, 1] = np.nan
+    elif case == "vlimit_mixed":
+        vlimit = rng.integers(0, nt + 1, K)
+    elif case != "walk":
+        raise ValueError(case)
+    return (torch.as_tensor(g_img), torch.as_tensor(x),
+            torch.as_tensor(resid),
+            torch.as_tensor(vlimit, dtype=torch.int32), h)
+
+
+def pipe_point_case(case: str, mesh):
+    """(points, r) of one case of ``PIPE_POINT_CASES`` on and around the
+    pipe ``mesh``, (M, 2) float64 each, |r| ≤ 1."""
+    rng = np.random.default_rng(71)
+    M = 1500
+    pts = rng.uniform(-0.1, 2.1, (M, 2))
+    pts[: M // 3] = rng.uniform(0.0, 0.5, (M // 3, 2))   # around the disk
+    if case == "fringe":
+        pts[::2] = fringe_points(mesh, len(pts[::2]))
+    elif case == "on_lines":
+        pts = np.resize(line_points(mesh), (M, 2))
+    elif case != "random":
+        raise ValueError(case)
+    r = rng.uniform(-1.0, 1.0, (M, 2))
+    r[::11] = 0.0
+    return torch.as_tensor(pts), torch.as_tensor(r)
+
+
+def same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """``torch.equal``, with NaN equal to NaN: a buoy that starts at NaN
+    keeps its NaN position, and a NaN point has a NaN ∇u."""
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    return (a.shape == b.shape and torch.equal(a.isnan(), b.isnan())
+            and torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0)))
