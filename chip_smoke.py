@@ -91,7 +91,27 @@ Phases, in order; any failure exits non-zero before the last line:
     ODE, ∇u projection, adjoint ODE, fused point sources and ∇u evaluation
     at 10⁴ seeds on the gmsh-default graded pipe (73 × 73, the primal
     ODE's image in device memory) and the uniform 22 × 22 pipe, each
-    kernel held to its plain version and timed.
+    kernel held to its plain version and timed;
+16. path 7, the verification harnesses on the card: the Stokes gradient
+    check at the reference's size (``pipelines.stokes_gradcheck.run``,
+    nx=32) against the JAX package's CPU numbers (gradj, J0, ‖div u‖ to
+    1e-10, centred error below 1e-11 at h=1e-3) and autograd through
+    ``solve_state`` against gradj (1e-9); the NS+ODE check
+    (``pipelines.ns_gradcheck.run``, nx=32, K=5: J0 against the JAX
+    package's to 1e-10, the centred quotient settled, its gap to gradj
+    printed) and the same at nx=8, K=3 against the CPU (1e-12); the VJP
+    of ``system.make_differentiable_ns_solver`` on the path-1 problem
+    against the centred difference of ⟨c, w(f)⟩ (1e-7). No kernel runs
+    on this path: the counts are printed;
+17. path 8, the initial-control study at the flagship size: path 1's u_d
+    and x0 written into a temporary ``reference_runs_dir``, path 3's fast
+    paths, counts set to 0, ``pipelines.initial_control.
+    run_all_cases_fused`` (cases 0–3, Armijo, LR=5, 3 iterations), counts
+    read (primal ODE = forwards, adjoint ODE and point sources = 12);
+    four distinct finite J histories, member 0 equal to three sequential
+    ``gd_step`` calls to 1e-12; then ``initial_control.run(case=2)``
+    through the driver for 2 iterations with its artifacts; seconds per
+    member-iteration and the driver's iteration seconds.
 Phase 4 also runs the hard inputs of the "left" diagonal and the pipes.
 
 The line before the last is the kernels' JSON record, one entry per
@@ -1291,6 +1311,221 @@ def run_path(name: str, prob, f, lr, kernels_on: tuple, metric: str,
     return res, counts
 
 
+# the JAX package on the CPU (float64, reference paths) at the
+# reference's sizes: stokes_gradcheck.run(nx=32, alpha=1e-2) and the J0
+# of ns_gradcheck.run(nx=32, K=5)
+STOKES_JAX = dict(gradj=-0.03131649410221973, J0=0.9676643376409284,
+                  div_l2=9.149866023292053e-4)
+NS_J0_JAX = 0.31099233774692514
+# the NS+ODE harness's adjoint is implicit and P1-projected: its gap to
+# the settled centred quotient is a consistency floor, printed and held
+# only loosely
+NS_GAP_BOUND = 5e-2
+
+
+def ns_gradcheck_small_reference() -> None:
+    """The NS+ODE harness at nx=8, K=3 on the card against the CPU: J0 and
+    gradj to 1e-12 relative."""
+    from ocean_torch.pipelines import ns_gradcheck
+    res = {where: ns_gradcheck.run(nx=8, K=3, ks=range(3, 5),
+                                   verbose=lambda s: None, device=where)
+           for where in ("cpu", "cuda")}
+    d = {k: abs(res["cuda"][k] / res["cpu"][k] - 1) for k in ("J0", "gradj")}
+    check(max(d.values()) < 1e-12, f"ns_gradcheck small reference: {d}")
+    print(f"ns_gradcheck small reference (nx=8, K=3): card vs CPU rel {d}",
+          flush=True)
+
+
+def differentiable_ns_check(prob) -> None:
+    """The VJP of ``make_differentiable_ns_solver`` on ``prob``: for a
+    seeded c, ⟨VJP(c), df⟩ against the centred difference of ⟨c, w(f)⟩
+    over three step sizes (1e-7 relative at the best)."""
+    import numpy as np
+    import torch
+    from ocean_torch import system
+
+    f = system.initial_control(prob, case=4)
+    df = system.fd_direction(prob)
+    c = torch.as_tensor(np.random.default_rng(5).standard_normal(
+        prob.space.ndof), device=prob.device)
+    fq = f.quad.clone().requires_grad_(True)
+    w = system.make_differentiable_ns_solver(prob)(fq)
+    (g,) = torch.autograd.grad(w, fq, c)
+    directional = float(torch.sum(g * df.quad))
+
+    def cw(q):
+        return float(torch.dot(c, system._solve_ns(prob, q).w))
+
+    errs = []
+    for h in (1e-3, 1e-4, 1e-5):
+        fd = (cw(f.quad + h * df.quad) - cw(f.quad - h * df.quad)) / (2 * h)
+        errs.append(abs(fd - directional) / abs(directional))
+        print(f"differentiable NS solve (Nx=32): h={h:.0e} centred "
+              f"<c, w> quotient {fd!r} against <VJP(c), df> "
+              f"{directional!r}: relative {errs[-1]!r}", flush=True)
+    check(min(errs) < 1e-7, f"differentiable NS solve: VJP against the "
+          f"centred difference {errs}")
+
+
+def path7_verification(prob, card: str) -> None:
+    """Path 7: the Stokes and NS+ODE gradient checks and the
+    differentiable NS solve on the card. Launches no kernel."""
+    import torch
+    from ocean_torch import kernels
+    from ocean_torch.pipelines import ns_gradcheck, stokes_gradcheck
+
+    dev = prob.device
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    lines = []
+    res = stokes_gradcheck.run(nx=32, alpha=1e-2, out=lines.append,
+                               device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    for line in lines:
+        print(f"stokes_gradcheck: {line}")
+    rel = {k: abs(res[k] / v - 1) for k, v in STOKES_JAX.items()}
+    print(f"stokes_gradcheck (nx=32): {secs:.2f} s with set-up on {card}; "
+          f"relative to the JAX package's CPU numbers {rel}", flush=True)
+    check(max(rel.values()) < 1e-10, f"stokes_gradcheck: {rel}")
+    cen = {h: err for _, err, h in res["centered"]}
+    check(cen[1e-3] < 1e-11, f"stokes_gradcheck: centred error "
+          f"{cen[1e-3]} at h=1e-3")
+    sp = stokes_gradcheck.build(nx=32, alpha=1e-2, device=dev)
+    f = stokes_gradcheck.default_control(sp)
+    fq = f.quad.clone().requires_grad_(True)
+    j = stokes_gradcheck.cost(sp, stokes_gradcheck.solve_state(sp, fq), fq)
+    (g,) = torch.autograd.grad(j, fq)
+    d_auto = abs(float(torch.sum(g * f.quad)) / res["gradj"] - 1)
+    check(d_auto < 1e-9, f"stokes_gradcheck: autograd against gradj "
+          f"{d_auto}")
+    print(f"stokes_gradcheck: autograd through solve_state against gradj "
+          f"{d_auto!r}", flush=True)
+
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        rn = ns_gradcheck.run(nx=32, K=5, out_dir=tmp,
+                              verbose=lambda s: None, device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        written = sorted(p.name for p in Path(tmp).iterdir())
+    check(written == ["grad_J_error_0.txt", "grad_J_error_centered_0.txt"],
+          f"ns_gradcheck: wrote {written}")
+    for approx, err, h in rn["centered"]:
+        print(f"ns_gradcheck: gradj {rn['gradj']!r} h={h:.0e} centred "
+              f"{approx!r} error {err!r}")
+    dj0 = abs(rn["J0"] / NS_J0_JAX - 1)
+    fd = [a for a, _, _ in rn["centered"]]
+    settled = min(abs(a - b) / abs(b) for a, b in zip(fd, fd[1:]))
+    gap = min(err for _, err, _ in rn["centered"]) / abs(rn["gradj"])
+    print(f"ns_gradcheck (nx=32, K=5): {secs:.2f} s with set-up on {card}; "
+          f"J0 {rn['J0']!r} (JAX package {NS_J0_JAX}, relative {dj0!r}), "
+          f"quotient settled to {settled!r}, gap to gradj {gap!r} "
+          f"(the implicit adjoint's consistency floor)", flush=True)
+    check(dj0 < 1e-10, f"ns_gradcheck: J0 relative {dj0}")
+    check(settled < 1e-6, f"ns_gradcheck: quotient not settled: {settled}")
+    check(gap < NS_GAP_BOUND, f"ns_gradcheck: gap to gradj {gap}")
+    ns_gradcheck_small_reference()
+    differentiable_ns_check(dataclasses.replace(prob, newton_reuse_lu=False))
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    print(f"path 7 launches: {counts}", flush=True)
+    check(not any(counts.values()), f"path 7 launched kernels: {counts}")
+
+
+PATH8_ARTIFACTS = tuple(a for a in ARTIFACTS
+                        if not a.startswith("checkpoints/"))
+
+
+def path8_initial_control(u_d, x0, card: str) -> dict:
+    """Path 8: the initial-control study at K=10⁴ from a temporary
+    ``reference_runs_dir``. Returns the fused run's launch counts."""
+    import tempfile
+    import numpy as np
+    import torch
+    from ocean_torch import kernels, system
+    from ocean_torch.config import OCPConfig
+    from ocean_torch.pipelines import initial_control
+
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = Path(tmp) / "reference_runs"
+        (runs / "10000_buoys").mkdir(parents=True)
+        np.save(runs / "10000_buoys" / "u_d_array.npy", u_d)
+        np.save(runs / "10000_buoys" / "x_0_array.npy", x0[:, None, :])
+        cfg = OCPConfig(ud_experiment="10000_buoys",
+                        unit_square_resolution=32, use_line_search=True,
+                        LR=5.0, num_steps=3, newton_reuse_lu=True,
+                        psrc_method="fused", ode_backend="pallas",
+                        reference_runs_dir=str(runs),
+                        out_dir=str(Path(tmp) / "ic") + "/")
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        ens, prob = initial_control.run_all_cases_fused(cfg, device="cuda")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        js, lrs = ens.j_history, ens.lr_history
+        print(f"path 8 (run_all_cases_fused, K=10⁴, Armijo): J "
+              f"{js.T.tolist()!r} LR {lrs.T.tolist()!r} escaped "
+              f"{ens.escaped_history.T.tolist()} stopped_at "
+              f"{ens.stopped_at.tolist()} launches={counts}", flush=True)
+        check(prob.K == 10000 and prob.ode_backend == "pallas"
+              and prob.psrc_method == "fused" and prob.newton_reuse_lu,
+              "path 8: not path 3's configuration")
+        check(ens.stopped_at.tolist() == [3] * 4, "path 8: a member stopped")
+        # probes of a step: LR halves after each refused probe
+        prev = torch.full((1, 4), cfg.LR, dtype=torch.float64)
+        ratio = torch.cat([prev, lrs[:-1]]) / lrs
+        probes = 1 + torch.round(torch.log2(ratio)).to(torch.int64)
+        check(torch.equal(ratio, 2.0 ** (probes - 1).to(torch.float64)),
+              f"path 8: LR history {lrs.tolist()} is not a halving")
+        forwards = int((1 + probes).sum())
+        want = {"primal_ode": forwards, "adjoint_ode": 12,
+                "point_sources": 12, "p1_eval": 0, "segment_sum": 0}
+        check(counts == want, f"path 8: launches {counts}, expected {want}")
+        check(bool(torch.isfinite(js).all())
+              and len(set(tuple(r) for r in js.T.tolist())) == 4,
+              "path 8: J histories not four distinct finite ones")
+        f, lr, seq = system.initial_control(prob, case=0), cfg.LR, []
+        for _ in range(3):
+            r = system.gd_step(prob, f, lr, use_line_search=True,
+                               max_ls_iters=cfg.max_line_search_iters)
+            f, lr = r.f_new, r.lr
+            seq.append((float(r.J), r.lr, r.fwd.newton.iterations))
+        dj = max(abs(a / s[0] - 1) for a, s in zip(js[:, 0].tolist(), seq))
+        check(dj < 1e-12 and lrs[:, 0].tolist() == [s[1] for s in seq],
+              f"path 8: member 0 against sequential gd_step: J rel {dj}, "
+              f"LR {lrs[:, 0].tolist()} vs {[s[1] for s in seq]}")
+        print(f"path 8 member 0 against three sequential gd_step calls: J "
+              f"relative {dj!r}, LR equal; chord Newton iterations at the "
+              f"three controls {[s[2] for s in seq]}", flush=True)
+        print(f"path8_fused_seconds_per_member_iteration: "
+              f"{secs / 12!r} ({secs:.2f} s for 4 members × 3 iterations "
+              f"with set-up, {forwards} forward solves) on {card}",
+              flush=True)
+
+        t0 = time.perf_counter()
+        res, _, _ = initial_control.run(
+            dataclasses.replace(cfg, num_steps=2), case=2, verbose=False,
+            device="cuda")
+        torch.cuda.synchronize()
+        out = Path(cfg.out_dir)
+        missing = [a for a in PATH8_ARTIFACTS if not (out / a).is_file()]
+        check(not missing, f"path 8 run(case=2): artifacts missing "
+              f"{missing}")
+        check(res.iterations_run == 2 and np.isfinite(res.j_array).all(),
+              f"path 8 run(case=2): {res.iterations_run} iterations, J "
+              f"{res.j_array}")
+        iters = [o + i for o, i in zip(res.outer_times, res.inner_times)]
+        print(f"path 8 initial_control.run(case=2): J {res.j_array!r} "
+              f"inner_iterations {res.inner_iterations} in "
+              f"{time.perf_counter() - t0:.2f} s with set-up and artifacts; "
+              f"driver iteration seconds (outer + inner) {iters!r} on "
+              f"{card}", flush=True)
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1619,6 +1854,12 @@ def main() -> int:
     pipe_record_sizes(dev, card)
     domain_records += pipe_real_size(dev, card)
 
+    # --- 16. path 7: the verification harnesses -----------------------------
+    path7_verification(prob, card)
+
+    # --- 17. path 8: the initial-control study at K=10⁴ ---------------------
+    counts_p8 = path8_initial_control(u_d, x0, card)
+
     launches = {n: counts1[n] for n in PATH1}
     launches.update({n: counts2[n] for n in PATH2 if n not in PATH1})
     launches["p1_eval"] = counts3["p1_eval"]
@@ -1626,6 +1867,7 @@ def main() -> int:
         rec["launches"] = launches[rec["name"]]
         rec["launches_path3"] = counts_p3[rec["name"]]
         rec["launches_path4"] = counts_p4[rec["name"]]
+        rec["launches_path8"] = counts_p8[rec["name"]]
         rec["geometry"] = RECTANGLE
     print(json.dumps({"kernels": records + domain_records}))
     print(json.dumps({"ok": True, "device": {

@@ -14,7 +14,15 @@ have yet make ``system.build_problem`` raise ``NotImplementedError``.
 from __future__ import annotations
 
 import dataclasses
+import json
 import re
+
+
+def load_parameters(path: str = "parameters.json") -> dict:
+    """Load the physics and discretization constants (viscosity, t0, T,
+    dt, alpha) from a parameters.json file."""
+    with open(path, "r") as fh:
+        return json.load(fh)
 
 
 @dataclasses.dataclass
@@ -96,3 +104,17 @@ class OCPConfig:
     def num_time_steps(self) -> int:
         """int(T / dt) — 200 for the shipped parameters."""
         return int(self.T / self.dt)
+
+    def with_parameters(self, params: dict) -> "OCPConfig":
+        """Return a copy updated from a parameters.json dict."""
+        return dataclasses.replace(
+            self,
+            viscosity=params.get("viscosity", self.viscosity),
+            t0=params.get("t0", self.t0),
+            T=params.get("T", self.T),
+            dt=params.get("dt", self.dt),
+            alpha=params.get("alpha", self.alpha),
+        )
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)

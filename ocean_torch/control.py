@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from .fem.spaces import TaylorHoodSpace, BoundaryQuad
-from .fem.interpolate import interpolate_p2
+from .fem.interpolate import boundary_eval_velocity, interpolate_p2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,6 +29,9 @@ class Control:
         """self + s * other (the control update)."""
         return Control(self.quad + s * other.quad, self.p2 + s * other.p2)
 
+    def scale(self, s: float) -> "Control":
+        return Control(s * self.quad, s * self.p2)
+
 
 def from_expression(space: TaylorHoodSpace, bq: BoundaryQuad,
                     fn: Callable[[np.ndarray], np.ndarray]) -> Control:
@@ -40,10 +43,22 @@ def from_expression(space: TaylorHoodSpace, bq: BoundaryQuad,
                    interpolate_p2(space, fn))
 
 
+def from_p2(space: TaylorHoodSpace, bq: BoundaryQuad,
+            u: torch.Tensor) -> Control:
+    """Control from a P2 velocity field (warm starts, the adjoint state z);
+    the boundary restriction is exact for P2 fields."""
+    return Control(boundary_eval_velocity(space, bq, u), u)
+
+
 def constant(space: TaylorHoodSpace, bq: BoundaryQuad, vec) -> Control:
     v = np.asarray(vec, dtype=np.float64)
     return from_expression(space, bq,
                            lambda x: np.broadcast_to(v, (len(x), 2)))
+
+
+def boundary_l2_sq(bq: BoundaryQuad, ctrl: Control) -> torch.Tensor:
+    """∫_{Γ₁} |f|² ds: the cost's Tikhonov term before the α/2 factor."""
+    return torch.sum(bq.weights * torch.sum(ctrl.quad ** 2, dim=-1))
 
 
 def boundary_inner(bq: BoundaryQuad, a: Control, b: Control) -> torch.Tensor:

@@ -27,7 +27,8 @@ def to_tensor(a, device="cpu", dtype=torch.float64) -> torch.Tensor:
 def control(quad, p2=None, device="cpu") -> Control:
     """A ``Control`` from the JAX control's ``quad`` and ``p2`` arrays, or
     from a control object of either package (anything with ``quad`` and
-    ``p2`` attributes) as the only argument."""
+    ``p2`` attributes) as the only argument. A stacked ensemble control
+    (a leading member axis on both) carries across as it is."""
     if p2 is None:
         quad, p2 = quad.quad, quad.p2
     return Control(to_tensor(quad, device), to_tensor(p2, device))

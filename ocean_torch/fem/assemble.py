@@ -104,9 +104,11 @@ def apply_bc_vector(r: torch.Tensor, bc_dofs: torch.Tensor,
 
 def ns_residual(space: TaylorHoodSpace, bq: Optional[BoundaryQuad],
                 w: torch.Tensor, f_quad: Optional[torch.Tensor],
-                nu: float, convection: bool = True) -> torch.Tensor:
+                nu: float, convection: bool = True, backflow: str = "none",
+                boundary_stab: bool = True) -> torch.Tensor:
     """Global NS residual (without BC application). f_quad: (nf, nq, 2)
-    control values at the Γ₁ quadrature points, or None."""
+    control values at the Γ₁ quadrature points, or None.
+    ``boundary_stab=False`` keeps the load and drops the Γ₁ term."""
     wl = w[space.cell_dofs_mixed]
     cell_r = vmap(lambda wl_, ji, dj: forms.ns_cell_residual(
         space, wl_, ji, dj, nu, convection))(
@@ -114,11 +116,14 @@ def ns_residual(space: TaylorHoodSpace, bq: Optional[BoundaryQuad],
     r = gather_sum(cell_r, space.inc_mixed)
     if bq is not None:
         wf = w[bq.dofs_mixed]
+        bf = backflow if boundary_stab else "off"
         if f_quad is None:
             facet_r = vmap(lambda wl_, ph, nrm, wt: forms.ns_facet_residual(
-                wl_, ph, nrm, wt, None))(wf, bq.phi2, bq.normals, bq.weights)
+                wl_, ph, nrm, wt, None, bf))(
+                    wf, bq.phi2, bq.normals, bq.weights)
         else:
-            facet_r = vmap(forms.ns_facet_residual)(
+            facet_r = vmap(lambda wl_, ph, nrm, wt, fq:
+                           forms.ns_facet_residual(wl_, ph, nrm, wt, fq, bf))(
                 wf, bq.phi2, bq.normals, bq.weights, f_quad)
         r = r + gather_sum(facet_r, bq.inc_mixed)
     return r
@@ -126,18 +131,19 @@ def ns_residual(space: TaylorHoodSpace, bq: Optional[BoundaryQuad],
 
 def ns_operator(space: TaylorHoodSpace, bq: Optional[BoundaryQuad],
                 w: torch.Tensor, nu: float, bc_dofs: torch.Tensor,
-                convection: bool = True) -> Operator:
+                convection: bool = True, backflow: str = "none",
+                boundary_stab: bool = True) -> Operator:
     """Jacobian of the NS residual at w (the Stokes operator when
-    convection=False)."""
+    convection=False). ``boundary_stab=False`` drops the facet matrices."""
     wl = w[space.cell_dofs_mixed]
     cell_jac = vmap(jacfwd(lambda wl_, ji, dj: forms.ns_cell_residual(
         space, wl_, ji, dj, nu, convection)))(
             wl, space.cell_jinv, space.cell_detj)
     facet_mats = facet_dofs = facet_inc = None
-    if bq is not None:
+    if bq is not None and boundary_stab:
         facet_mats = vmap(jacfwd(lambda wl_, ph, nrm, wt:
                                  forms.ns_facet_residual(
-                                     wl_, ph, nrm, wt, None)))(
+                                     wl_, ph, nrm, wt, None, backflow)))(
             w[bq.dofs_mixed], bq.phi2, bq.normals, bq.weights)
         facet_dofs, facet_inc = bq.dofs_mixed, bq.inc_mixed
     return Operator(cell_jac, space.cell_dofs_mixed, facet_mats, facet_dofs,
@@ -162,6 +168,19 @@ def adjoint_operator(space: TaylorHoodSpace, bq: Optional[BoundaryQuad],
     return Operator(cell_jac, space.cell_dofs_mixed, facet_mats, facet_dofs,
                     bc_dofs, space.ndof, inc=space.inc_mixed,
                     facet_inc=facet_inc)
+
+
+# ---------------------------------------------------------------------------
+# Boundary load vector  ∫ f·v ds(1)
+# ---------------------------------------------------------------------------
+
+def boundary_load(space: TaylorHoodSpace, bq: BoundaryQuad,
+                  f_quad: torch.Tensor) -> torch.Tensor:
+    """RHS vector of the Neumann control load ∫_{Γ₁} f·v ds."""
+    vals = torch.einsum("fq,fqi,fqa->fai", bq.weights, f_quad, bq.phi2)
+    loc = torch.cat([vals.reshape(-1, 12),
+                     vals.new_zeros((vals.shape[0], 3))], dim=1)
+    return gather_sum(loc, bq.inc_mixed)
 
 
 # ---------------------------------------------------------------------------
@@ -214,3 +233,32 @@ def velocity_norms(space: TaylorHoodSpace, u: torch.Tensor):
     l2 = torch.sum(w * torch.sum(u_q ** 2, dim=-1))
     h1 = torch.sum(w * torch.sum(gu ** 2, dim=(-2, -1)))
     return torch.sqrt(l2), torch.sqrt(l2 + h1)
+
+
+def velocity_diff_norms(space: TaylorHoodSpace, u: torch.Tensor,
+                        u_ref: torch.Tensor):
+    """(L2, H1) norms of u − ū against a stored reference flow."""
+    return velocity_norms(space, u - u_ref)
+
+
+def l2_tracking_volume(space: TaylorHoodSpace, u: torch.Tensor,
+                       ud_const: torch.Tensor) -> torch.Tensor:
+    """∫ 0.5 |u − u_d|² dx with constant u_d: the volume cost of the
+    Stokes gradient check."""
+    u_q, _ = _cell_grad(space, u)
+    per_cell = torch.sum(space.qw * space.cell_detj[:, None] * 0.5
+                         * torch.sum((u_q - ud_const) ** 2, dim=-1), dim=-1)
+    return torch.sum(per_cell)
+
+
+def volume_tracking_rhs(space: TaylorHoodSpace, u: torch.Tensor,
+                        ud_const: torch.Tensor) -> torch.Tensor:
+    """RHS vector ∫ (u − u_d)·v dx: the adjoint load of the Stokes
+    gradient check."""
+    u_q, _ = _cell_grad(space, u)
+    rv = torch.einsum("cq,cqi,qa->cai",
+                      space.qw * space.cell_detj[:, None], u_q - ud_const,
+                      space.phi2)
+    vals = torch.cat([rv.reshape(-1, 12), rv.new_zeros((rv.shape[0], 3))],
+                     dim=1)
+    return gather_sum(vals, space.inc_mixed)

@@ -5,6 +5,7 @@
     the Neumann control load:
         a = (ν ∇u:∇v + (∇u·u)·v + div(u) q + div(v) p) dx
             − 0.5 (u·n)(u·v) ds(1) − f·v ds(1)
+    (the Stokes subset drops the convection and the Γ₁ term)
   * the adjoint bilinear form (its Laplacian carries no viscosity
     coefficient, as in the reference):
         aAdj = (∇z:∇v + (∇u v)·z + (∇v u)·z + div(z) q + div(v) r) dx
@@ -61,13 +62,26 @@ def ns_cell_residual(space: TaylorHoodSpace, wl: torch.Tensor,
 
 def ns_facet_residual(wl: torch.Tensor, phi2f: torch.Tensor,
                       normal: torch.Tensor, wts: torch.Tensor,
-                      f_q: Optional[torch.Tensor]) -> torch.Tensor:
+                      f_q: Optional[torch.Tensor], backflow: str = "none",
+                      backflow_delta: float = 0.1) -> torch.Tensor:
     """Γ₁ facet part of the NS residual: −0.5(u·n)(u·v) − f·v.
-    phi2f (nq, 6); wts (nq,) weight × length; f_q (nq, 2) or None."""
+    phi2f (nq, 6); wts (nq,) weight × length; f_q (nq, 2) or None.
+
+    ``backflow``: "none" is the reference's term; "off" drops it (load
+    only, the form of the NS+ODE gradient check); "tanh" puts the gen-1
+    regularization ψ_δ(u·n) = 0.5(u·n tanh(u·n/δ) − u·n + δ) in place of
+    0.5 u·n."""
     u, _ = split_local(wl)
     u_q = torch.einsum("qa,ai->qi", phi2f, u)
     un = u_q @ normal
-    rv = -0.5 * torch.einsum("q,q,qi,qa->ai", wts, un, u_q, phi2f)
+    if backflow == "off":
+        rv = u_q.new_zeros((6, 2))
+    elif backflow == "tanh":
+        d = backflow_delta
+        coef = 0.5 * (un * torch.tanh(un / d) - un + d)
+        rv = -torch.einsum("q,q,qi,qa->ai", wts, coef, u_q, phi2f)
+    else:
+        rv = -0.5 * torch.einsum("q,q,qi,qa->ai", wts, un, u_q, phi2f)
     if f_q is not None:
         rv = rv - torch.einsum("q,qi,qa->ai", wts, f_q, phi2f)
     return torch.cat([rv.reshape(12), rv.new_zeros(3)])

@@ -1,6 +1,6 @@
 """Adjoint buoy ODE: backward recursion for the costate μ (port of
-``ocean_jax/ode/adjoint.py``: the explicit recursion and its consistent
-mode).
+``ocean_jax/ode/adjoint.py``: the explicit recursion, its consistent
+mode and the implicit variant of the NS+ODE gradient check).
 
     μ[nt-1] = 0
     μ[k] = μ[k+1] − h ∇u(x[k+1])ᵀ ((u(x[k+1]) − u_d[k+1]) − μ[k+1])
@@ -14,6 +14,9 @@ leftover-variable quirk, starting from zeros). Masked (escaped) buoys get
   evaluations at once, then the recursion as a log-depth prefix scan of
   affine maps over time;
 * ``method="scan"``: a host loop over time, vectorized over buoys.
+
+``solve_adjoint_ode_implicit`` is the implicit recursion of the coupled
+gradient check, (I + h ∇uᵀ) μ[k] = μ[k+1] − h ∇uᵀ (u(x[k+1]) − u_d[k]).
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ from __future__ import annotations
 import torch
 
 from ..fem.spaces import TaylorHoodSpace
-from ..fem.interpolate import eval_p1_tensor
+from ..fem.interpolate import eval_p1_tensor, eval_velocity
 from .cuda_eval import eval_p1_tensor_cuda
 from .grideval import grad_to_grid
 
@@ -169,3 +172,38 @@ def _adjoint_ode_parallel(space: TaylorHoodSpace, grad_u: torch.Tensor,
     mu = torch.stack([torch.flip(b1.T, [1]), torch.flip(b2.T, [1])], dim=-1)
     mu = torch.cat([mu, mu.new_zeros(K, 1, 2)], dim=1)
     return torch.where(mask[:, None, None], 0.0, mu)
+
+
+def solve_adjoint_ode_implicit(space: TaylorHoodSpace, grad_u: torch.Tensor,
+                               u: torch.Tensor, x: torch.Tensor,
+                               u_d: torch.Tensor, h: float,
+                               ud_index: str = "k") -> torch.Tensor:
+    """Implicit backward recursion of the coupled NS+ODE gradient check:
+    (I + h ∇uᵀ) μ[k] = μ[k+1] − h ∇uᵀ (u(x[k+1]) − u_d[idx]), the 2×2
+    system solved in closed form. ``ud_index``: "k" reproduces the
+    reference's u_d[k]; "k+1" is the consistent variant. The inside flag
+    is ignored (clamped evaluation), as in the JAX package.
+
+    u: (n_p2, 2) velocity; x, u_d: (K, nt, 2) → μ (K, nt, 2)."""
+    K, nt, _ = x.shape
+    shift = {"k": 0, "k+1": 1}[ud_index]
+    # ∇u and u at all K·(nt−1) points x[:, 1:] at once
+    g_all, _ = eval_p1_tensor(space, grad_u, x[:, 1:])    # (K, nt-1, 2, 2)
+    uv_all, _ = eval_velocity(space, u, x[:, 1:])         # (K, nt-1, 2)
+    mu = x.new_zeros(K, nt, 2)
+    mu0 = x.new_zeros(K)
+    mu1 = x.new_zeros(K)
+    for k in range(nt - 2, -1, -1):
+        g = g_all[:, k]
+        r = uv_all[:, k] - u_d[:, k + shift]
+        # a = I + h gᵀ; b = μ[k+1] − (h gᵀ) r, in the JAX order
+        a00, a01 = 1.0 + h * g[:, 0, 0], h * g[:, 1, 0]
+        a10, a11 = h * g[:, 0, 1], 1.0 + h * g[:, 1, 1]
+        b0 = mu0 - (h * g[:, 0, 0] * r[:, 0] + h * g[:, 1, 0] * r[:, 1])
+        b1 = mu1 - (h * g[:, 0, 1] * r[:, 0] + h * g[:, 1, 1] * r[:, 1])
+        det = a00 * a11 - a01 * a10
+        mu0, mu1 = ((a11 / det) * b0 + (-a01 / det) * b1,
+                    (-a10 / det) * b0 + (a00 / det) * b1)
+        mu[:, k, 0] = mu0
+        mu[:, k, 1] = mu1
+    return mu

@@ -1,3 +1,5 @@
-from . import ud_construction, limits, ocp
+from . import (ud_construction, limits, ocp, stokes_gradcheck, ns_gradcheck,
+               initial_control)
 
-__all__ = ["ud_construction", "limits", "ocp"]
+__all__ = ["ud_construction", "limits", "ocp", "stokes_gradcheck",
+           "ns_gradcheck", "initial_control"]

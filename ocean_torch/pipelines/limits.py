@@ -78,12 +78,7 @@ def run(cfg: OCPConfig, write_artifacts: bool = True, verbose: bool = True,
                          else cfg.psrc_method),
             ode_backend=("pallas" if cfg.ode_backend == "gather"
                          else cfg.ode_backend))
-    ubar_path = os.path.join(cfg.reference_runs_dir, "u_bar_chapter_6.3.3",
-                             "paraview", "checkpoint", "u.h5")
-    if os.path.exists(ubar_path):
-        raise NotImplementedError(
-            "ocean_torch: the u_bar comparison (norm_table.txt) against "
-            f"{ubar_path} is not ported yet")
+    ocp_pipeline._refuse_ubar(cfg)
     u_d, x0 = ensure_ud(cfg, cache_dir=ud_cache_dir, device=device)
     prob = sys_mod.build_problem(cfg, u_d=u_d, x0=x0, device=device)
     mesh = ocp_pipeline._mesh(cfg)

@@ -62,9 +62,11 @@ def inflow_for(K: int):
 
 
 def build(nx: int = 32, viscosity: float = 1.0, diagonal: str = "right",
-          inflow=taylor_green, device="cpu"):
+          inflow=taylor_green, device="cuda"):
+    """Mesh, space, the combined Dirichlet conditions and ν on
+    ``device``."""
     mesh = rectangle_mesh((0.0, 0.0), (2.0, 2.0), nx, nx, diagonal=diagonal)
-    space = make_space(mesh, device)
+    space = make_space(mesh, resolve_device(device))
     # BCs in dolfin list order (later applications overwrite earlier)
     bc_noslip = dirichlet_velocity_bc(
         mesh, space,

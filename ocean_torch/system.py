@@ -12,6 +12,8 @@ the gradient-descent iteration (port of the dense branch of
     gd_step            one full GD iteration, with or without the Armijo
                        backtracking line search
     gd_multi_step      n iterations of gd_step with the LR carried along
+    make_differentiable_ns_solver   f_quad → w with the implicit-function
+                       VJP, for autograd through the whole forward map
 
 PyTorch runs eagerly, so host loops and Python ``if`` on ``.item()``
 values replace ``lax.while_loop``/``lax.scan``/``lax.cond``. Branches the
@@ -305,6 +307,42 @@ def _solve_ns(prob: OCPProblem, f_quad: torch.Tensor) -> NewtonResult:
                         reuse_factorization=prob.newton_reuse_lu,
                         correction_iters=prob.newton_correction_iters,
                         fac0=prob.fac0)
+
+
+class _DifferentiableNS(torch.autograd.Function):
+    """f_quad → w. The backward pass is the implicit function theorem:
+    J(w*)ᵀ λ = w̄ with λ = 0 on the Dirichlet dofs, then f̄ = Lᵀ λ with L
+    the Γ₁ load operator ∫ f·v ds."""
+
+    @staticmethod
+    def forward(ctx, f_quad, prob):
+        w = _solve_ns(prob, f_quad).w
+        ctx.prob = prob
+        ctx.save_for_backward(w)
+        return w
+
+    @staticmethod
+    def backward(ctx, w_bar):
+        prob = ctx.prob
+        (w,) = ctx.saved_tensors
+        op = assemble.ns_operator(prob.space, prob.bq, w, prob.nu,
+                                  prob.bc_dofs)
+        a_t = op.dense().T
+        lam = linalg.solve_refined(linalg.factorize(a_t),
+                                   lambda x: a_t @ x, w_bar, iters=8)
+        lam = lam.index_fill(0, prob.bc_dofs, 0.0)
+        lam_u, _ = prob.space.split(lam)
+        dofs = prob.space.cell_dofs_p2[prob.bq.cells]
+        f_bar = torch.einsum("fq,fqa,fai->fqi", prob.bq.weights,
+                             prob.bq.phi2, lam_u[dofs])
+        return f_bar, None
+
+
+def make_differentiable_ns_solver(prob: OCPProblem):
+    """Return f_quad → w, differentiable by ``torch.autograd`` through the
+    implicit-function VJP: the exact discrete gradient of anything
+    computed from w (the port's counterpart of the JAX custom VJP)."""
+    return lambda f_quad: _DifferentiableNS.apply(f_quad, prob)
 
 
 def _primal_ode(prob: OCPProblem, u: torch.Tensor):

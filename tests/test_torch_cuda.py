@@ -481,3 +481,99 @@ def test_point_kernels_left_lshape_hard_inputs(dev, case):
     vk, ik = eval_p1_tensor_cuda(ge, g_img, pts)
     vp, ip = eval_p1_tensor_grid(ge, g_img, pts)
     assert torch.equal(vk, vp) and torch.equal(ik, ip)
+
+
+def _rel(a, b):
+    a, b = a.cpu(), b.cpu()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def test_implicit_adjoint_and_boundary_load_on_card(dev):
+    """The implicit adjoint ODE of the NS+ODE gradient check and the Γ₁
+    load run in plain PyTorch: the card gives the CPU's values to 1e-12."""
+    from ocean_torch.fem import assemble
+    from ocean_torch.fem.spaces import make_boundary_quad
+    from ocean_torch.ode import solve_adjoint_ode_implicit
+    from ocean_torch.solve import GradProjector
+    mesh = structured.rectangle_mesh((0.0, 0.0), (2.0, 2.0), 8, 8)
+    tags = structured.mark_boundary_facets(
+        mesh, lambda x: np.abs(x[:, 0]) < 1e-12)
+    rng = np.random.default_rng(31)
+    K, nt = 64, 200
+    u = 0.5 * rng.standard_normal((make_space(mesh, "cpu").n_p2, 2))
+    fq = 0.2 * rng.standard_normal(
+        tuple(make_boundary_quad(mesh, tags).points.shape))
+    x = 0.3 + 1.4 * rng.random((K, 1, 2)) \
+        + np.cumsum(0.005 * rng.standard_normal((K, nt, 2)), axis=1)
+    x[0, :, 0] = np.linspace(1.8, 2.2, nt)          # leaves through x = 2
+    u_d = 0.1 * rng.standard_normal((K, nt, 2))
+    out = {}
+    for where in ("cpu", "cuda"):
+        space = make_space(mesh, where)
+        bq = make_boundary_quad(mesh, tags, device=where)
+        ut = torch.as_tensor(u, device=where)
+        g = GradProjector.build(space).project(space, ut)
+        xt, udt = (torch.as_tensor(a, device=where) for a in (x, u_d))
+        out[where] = (
+            solve_adjoint_ode_implicit(space, g, ut, xt, udt, 0.005),
+            solve_adjoint_ode_implicit(space, g, ut, xt, udt, 0.005,
+                                       ud_index="k+1"),
+            assemble.boundary_load(space, bq,
+                                   torch.as_tensor(fq, device=where)))
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert a.device.type == "cuda"
+        assert _rel(a, b) < 1e-12
+
+
+def _small_problem(where, K=2, **kw):
+    from ocean_torch import system
+    from ocean_torch.config import OCPConfig
+    from ocean_torch.pipelines.ud_construction import seed_positions
+    rng = np.random.default_rng(32)
+    u_d = 0.05 * rng.standard_normal((K, 200, 2))
+    x0 = (seed_positions(K) if K == 100
+          else 0.5 + rng.random((K, 2)))
+    cfg = OCPConfig(ud_experiment=f"{K}_buoys", unit_square_resolution=8,
+                    **kw)
+    return system.build_problem(cfg, u_d=u_d, x0=x0, device=where)
+
+
+def test_differentiable_ns_vjp_on_card(dev):
+    from ocean_torch import system
+    w_bar = np.random.default_rng(33).standard_normal(
+        _small_problem("cpu").space.ndof)
+    grads = {}
+    for where in ("cpu", "cuda"):
+        prob = _small_problem(where)
+        fq = system.initial_control(prob, 0).quad.clone().requires_grad_(
+            True)
+        w = system.make_differentiable_ns_solver(prob)(fq)
+        (grads[where],) = torch.autograd.grad(
+            w, fq, torch.as_tensor(w_bar, device=where))
+    assert _rel(grads["cuda"], grads["cpu"]) < 1e-10
+
+
+def test_run_ensemble_on_card(dev):
+    """The four initial-control cases at Nx=8, K=100 through the kernels
+    (fast paths, Armijo) on the card against the plain versions on the
+    CPU."""
+    from ocean_torch import kernels, system
+    from ocean_torch.opt.ensemble import run_ensemble, stack_controls
+    res, counts = {}, {}
+    for where in ("cpu", "cuda"):
+        prob = _small_problem(where, K=100, ode_backend="pallas",
+                              psrc_method="fused", newton_reuse_lu=True)
+        f0 = stack_controls([system.initial_control(prob, c)
+                             for c in range(4)])
+        kernels.reset_launch_counts()
+        res[where] = run_ensemble(
+            prob, f0, torch.tensor([5.0, 5.0, 2.0, 1.0]), num_steps=2,
+            use_line_search=True, escape_threshold=50)
+        counts[where] = kernels.launch_counts()
+    assert counts["cpu"]["adjoint_ode"] == 0
+    assert counts["cuda"]["adjoint_ode"] >= 4
+    gpu, cpu = res["cuda"], res["cpu"]
+    assert torch.equal(gpu.stopped_at, cpu.stopped_at)
+    assert torch.equal(gpu.lr_history, cpu.lr_history)
+    assert torch.equal(gpu.escaped_history, cpu.escaped_history)
+    assert _rel(gpu.j_history, cpu.j_history) < 1e-12

@@ -82,18 +82,27 @@ def test_initial_control_matches_jax(steps):
         assert np.array_equal(ft.p2.numpy(), np.asarray(fj.p2))
 
 
-def test_entry_points_need_cuda_unless_cpu(monkeypatch):
+def test_entry_points_need_cuda_unless_cpu(monkeypatch, tmp_path):
     from ocean_torch import resolve_device
-    from ocean_torch.pipelines import limits, ud_construction
+    from ocean_torch.pipelines import (initial_control, limits,
+                                       ns_gradcheck, stokes_gradcheck,
+                                       ud_construction)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = OCPConfig(**FAST)
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        system.build_problem(cfg, u_d=np.zeros((100, 200, 2)),
-                             x0=seed_positions(100))
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        ud_construction.run(nx=2, K=2, T=0.01)
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        limits.ensure_ud(cfg, cache_dir="/nonexistent-cache")
+    small = OCPConfig(ud_experiment="2_buoys", unit_square_resolution=4,
+                      reference_runs_dir=str(tmp_path))
+    calls = [lambda: system.build_problem(cfg, u_d=np.zeros((100, 200, 2)),
+                                          x0=seed_positions(100)),
+             lambda: ud_construction.run(nx=2, K=2, T=0.01),
+             lambda: ud_construction.build(2),
+             lambda: limits.ensure_ud(cfg, cache_dir="/nonexistent-cache"),
+             lambda: stokes_gradcheck.build(nx=2),
+             lambda: ns_gradcheck.build(nx=2, K=2),
+             lambda: initial_control.run(small, write_artifacts=False),
+             lambda: initial_control.run_all_cases_fused(small)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
     assert resolve_device("cpu").type == "cpu"
 
 
@@ -162,7 +171,11 @@ def test_import_leaves_jax_out():
             "ocean_torch.ops.psum_cuda, ocean_torch.ode.cuda_eval, "
             "ocean_torch.ode.adjoint, ocean_torch.adjoint.point_sources, "
             "ocean_torch.opt.driver, ocean_torch.opt.grad_check, "
-            "ocean_torch.io, ocean_torch.cli, ocean_torch.pipelines.ocp; "
+            "ocean_torch.io, ocean_torch.cli, ocean_torch.pipelines.ocp, "
+            "ocean_torch.pipelines.stokes_gradcheck, "
+            "ocean_torch.pipelines.ns_gradcheck, "
+            "ocean_torch.pipelines.initial_control, "
+            "ocean_torch.opt.ensemble; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m.startswith('ocean_jax')]; "
             "print(bad); sys.exit(1 if bad else 0)")
