@@ -111,7 +111,28 @@ Phases, in order; any failure exits non-zero before the last line:
     four distinct finite J histories, member 0 equal to three sequential
     ``gd_step`` calls to 1e-12; then ``initial_control.run(case=2)``
     through the driver for 2 iterations with its artifacts; seconds per
-    member-iteration and the driver's iteration seconds.
+    member-iteration and the driver's iteration seconds;
+18. path 9, the JAX package's hi-res multigrid study
+    (``results/hires_mg/``: unit square, 400 meshgrid buoys synthesized
+    at Nx=32, nt=200, Armijo, LR 1, ``initial_control(case=4)``,
+    ``linear_solver="auto"``): a small mg reference (Nx=8, card against
+    CPU); 9a at Nx=64 (37,507 dofs): "auto" must pick mg with two levels
+    (coarse 9,539 dofs, leaf 8,450 velocity dofs) and the stencil matvec;
+    counts set to 0, 3 driver iterations, counts read (primal ODE =
+    forwards, adjoint ODE and point sources = iterations), every NS and
+    adjoint solve converged, J decreasing; per iteration J, probes,
+    Newton iterations, FGMRES cycles a Newton step, adjoint rounds and
+    residual, seconds; ``hires_nx64_gd_iteration_seconds`` (median of
+    iterations 1–2) and the set-up seconds by part; J₀ beside the TPU
+    record (information); kernels 1–3 on these inputs (the primal ODE's
+    image in device memory) against their plain versions; the stages of
+    one mg step; the stencil matvec in float32 and float64 against its
+    byte bound and a CSR product. 9b: the same problem with a forced
+    dense LU (37,507² float64) and one ``gd_step`` each from the same
+    control: J within 1e-9 relative, f_new within 1e-9·max|f_new|. 9c at
+    Nx=192 (333,699 dofs, levels 192 → 96 → 48, 37,249 P1 dofs → CG
+    projection): one Armijo iteration, every solve converged, the
+    accepted probe's J below J₀, its seconds, then as in 9a.
 Phase 4 also runs the hard inputs of the "left" diagonal and the pipes.
 
 The line before the last is the kernels' JSON record, one entry per
@@ -225,11 +246,13 @@ def adjoint_bound(ge, K: int, nt: int):
 
 def stage_seconds(prob, f, lr) -> dict:
     """Host-clock seconds of each stage of one GD step, in the order
-    ``system.gd_step`` runs them, each ending in a synchronize."""
+    ``system.gd_step`` runs them, each ending in a synchronize: on the
+    dense path the chord Newton and the transposed-factor adjoint solve,
+    on the multigrid path the FGMRES Newton and the mixed-precision
+    adjoint rounds."""
     import torch
     from ocean_torch import system
     from ocean_torch.fem import assemble
-    from ocean_torch.solve import solve_operator_reuse_t
 
     out = {}
 
@@ -251,10 +274,12 @@ def stage_seconds(prob, f, lr) -> dict:
                lambda: system._adjoint_mu(prob, grad_u, *state))
     b = timed("point_sources",
               lambda: system._adjoint_sources(prob, u, mu, *state))
-    op = timed("adjoint_assemble", lambda: assemble.adjoint_operator(
-        prob.space, prob.bq, newton.w, prob.bc_dofs))
-    z, _ = timed("adjoint_solve", lambda: solve_operator_reuse_t(
-        op, b, prob.bc_vals, newton.fac, refine_iters=prob.refine_iters))
+    op, op_c = timed("adjoint_assemble", lambda: system.adjoint_operators(
+        prob, newton.w))
+    fwd = system.ForwardState(newton.w, ode.x, ode.u_values, ode.mask,
+                              newton, ode.x_raw, ode.kfail)
+    z, _ = timed("adjoint_solve", lambda: system.solve_adjoint_system(
+        prob, fwd, b, op, op_c))
 
     def update():
         g = system.reduced_gradient(prob, f, z)
@@ -1526,6 +1551,312 @@ def path8_initial_control(u_d, x0, card: str) -> dict:
     return counts
 
 
+# the JAX package's hi-res study on its TPU (results/hires_mg/summary.json,
+# 400 buoys, Armijo, LR 1, initial_control(case=4)): the first recorded J
+# at Nx=64 and Nx=192. The record's J moved between passes of the study
+# (results/hires_mg/run.log), so they are printed beside the port's, not
+# held to it.
+HIRES_J0 = {64: 1.157232246063213, 192: 1.158434906717261}
+
+
+def square_sizes(n: int):
+    """(mixed dofs, velocity dofs, P1 dofs) of the [0,2]² square at Nx=n."""
+    n_p2, n_p1 = (2 * n + 1) ** 2, (n + 1) ** 2
+    return 2 * n_p2 + n_p1, 2 * n_p2, n_p1
+
+
+def mg_levels(ctx) -> list:
+    """The multigrid contexts from the finest down."""
+    out = [ctx]
+    while out[-1].sub is not None:
+        out.append(out[-1].sub)
+    return out
+
+
+def mg_driver_run(name: str, cfg, prob, f0, card: str):
+    """Counts set to 0, ``cfg.num_steps`` driver iterations, counts read;
+    every NS and adjoint solve of the run converged (the problem's solve
+    log); per iteration J, probes, each Newton solve's iterations and
+    FGMRES cycles a step, the adjoint's rounds and final relative
+    residual, and the seconds. Returns (result, counts)."""
+    import torch
+    from ocean_torch import kernels
+    from ocean_torch.opt.driver import run_gradient_descent
+
+    marks = []
+    kernels.reset_launch_counts()
+    res = run_gradient_descent(
+        cfg, prob, f0, on_iteration=lambda *a: marks.append(
+            len(prob.solve_log)), verbose=False)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    start = 0
+    for i, end in enumerate(marks):
+        recs, start = prob.solve_log[start:end], end
+        ns = [r for r in recs if r["solve"] == "ns_newton"]
+        adj = [r for r in recs if r["solve"] == "adjoint"]
+        check(len(adj) == 1 and all(r["converged"] for r in recs),
+              f"{name}: iteration {i}: a solve did not converge: {recs}")
+        print(f"{name} iteration {i}: J={res.j_array[i]!r} probes="
+              f"{res.inner_iterations[i]} newton_iterations="
+              f"{[r['iterations'] for r in ns]} fgmres_cycles_per_newton_step="
+              f"{[r['krylov_cycles'] for r in ns]} adjoint_rounds="
+              f"{adj[0]['rounds']} adjoint_fgmres_cycles="
+              f"{adj[0]['krylov_cycles']} adjoint_relative_residual="
+              f"{adj[0]['relative_residual']!r} seconds="
+              f"{res.outer_times[i] + res.inner_times[i]!r} on {card}",
+              flush=True)
+    n = res.iterations_run
+    check(n == cfg.num_steps, f"{name}: ran {n} iterations, exit "
+          f"{res.exit_reason}")
+    j = res.j_array
+    check(all(v == v and abs(v) != float("inf") for v in j)
+          and all(b < a for a, b in zip(j, j[1:])),
+          f"{name}: J not finite and decreasing: {j}")
+    # each accepted probe's forward state is the next iteration's
+    want = {"primal_ode": 1 + sum(res.inner_iterations), "adjoint_ode": n,
+            "point_sources": n, "p1_eval": 0, "segment_sum": 0}
+    check(counts == want, f"{name}: launches {counts}, expected {want}")
+    print(f"{name}: launches={counts} escaped="
+          f"{int(res.last_fwd.mask.sum())} LR={res.lr!r}", flush=True)
+    return res, counts
+
+
+def path9_kernels(prob, fwd, counts: dict, geometry: str, card: str):
+    """Kernels 1–3 on path 9's inputs (the primal ODE's velocity image in
+    device memory), each held to its plain version and timed as in
+    phase 4. Returns their records."""
+    import torch
+    from ocean_torch.ode import cuda_ode
+    from ocean_torch.ode.grideval import grad_to_grid, velocity_to_grid
+
+    ge, K, nt, h = prob.grid, prob.K, prob.nt, prob.h
+    Hy, Hx = ge.hg_shape
+    check(cuda_ode.shared_bytes(ge) < 16 * Hy * Hx,
+          f"{geometry}: the velocity image would fit in shared memory")
+    print(f"{geometry}: primal ODE image {16 * Hy * Hx} B in device memory "
+          f"(dynamic shared memory {cuda_ode.shared_bytes(ge)} B a block)",
+          flush=True)
+    u, _ = prob.space.split(fwd.w)
+    err, ms, plain, _ = primal_ode_check(ge, velocity_to_grid(ge, u),
+                                         prob.x0, h, nt, geometry, card)
+    records = [ode_record("primal_ode", geometry, err, ms, plain,
+                          primal_bound(ge, K, nt))]
+    g_img = grad_to_grid(ge, prob.projector.project(prob.space, u))
+    vlimit = torch.full((K,), nt, dtype=torch.int32, device=prob.device)
+    err, ms, plain = adjoint_ode_check(
+        ge, g_img, fwd.x, (fwd.u_values - prob.u_d).contiguous(), vlimit, h,
+        geometry, card)
+    records.append(ode_record("adjoint_ode", geometry, err, ms, plain,
+                              adjoint_bound(ge, K, nt)))
+    records.append(point_sources_record(
+        *scatter_inputs(prob, fwd)["point_sources"], f" on {geometry}"))
+    for rec in records:
+        rec["geometry"] = geometry
+        rec["launches"] = counts[rec["name"]]
+    return records
+
+
+def stencil_times(prob, label: str, card: str) -> None:
+    """The stencil matvec of the fine mixed operator (not a TPU kernel:
+    plain PyTorch, one gather and one batched contraction) at the Stokes
+    state, float32 and float64, each against ``Operator.matvec64`` and
+    timed with CUDA events beside its byte bound (coefficients read once,
+    x read and y written once) and beside a CSR sparse product of the
+    same matrix."""
+    import torch
+    from ocean_torch.fem import assemble
+    from ocean_torch.ops import stencil
+
+    st, n = prob.mg.st_mixed, prob.space.ndof
+    op = assemble.ns_operator(
+        prob.space, prob.bq, torch.zeros(n, dtype=torch.float64,
+                                         device=prob.device),
+        prob.nu, prob.bc_dofs)
+    x = torch.randn(n, dtype=torch.float64, device=prob.device,
+                    generator=torch.Generator(prob.device).manual_seed(9))
+    ref = op.matvec64(x)
+    # the same matrix in CSR: element entries off the Dirichlet rows,
+    # identity rows on them, duplicates summed by coalesce
+    k = op.cell_dofs.shape[1]
+    parts = [(op.cell_dofs, op.cell_mats)]
+    if op.facet_mats is not None:
+        parts.append((op.facet_dofs, op.facet_mats))
+    rows = torch.cat([d[:, :, None].expand(-1, k, k).reshape(-1)
+                      for d, _ in parts])
+    cols = torch.cat([d[:, None, :].expand(-1, k, k).reshape(-1)
+                      for d, _ in parts])
+    vals = torch.cat([m.reshape(-1) for _, m in parts])
+    free = torch.ones(n, dtype=torch.bool, device=prob.device)
+    free[op.bc_dofs] = False
+    keep = free[rows]
+    rows = torch.cat([rows[keep], op.bc_dofs])
+    cols = torch.cat([cols[keep], op.bc_dofs])
+    vals = torch.cat([vals[keep], torch.ones_like(op.bc_dofs,
+                                                  dtype=vals.dtype)])
+    csr = torch.sparse_coo_tensor(torch.stack([rows, cols]), vals,
+                                  (n, n)).coalesce().to_sparse_csr()
+    for dtype, tol in ((torch.float32, 1e-4), (torch.float64, 1e-12)):
+        s = stencil.build_coefficients(st, op, dtype)
+        xd = x.to(dtype)
+        y = stencil.stencil_matvec(st, s, op.bc_dofs, xd)
+        err = float((y.double() - ref).abs().max() / ref.abs().max())
+        check(err < tol, f"stencil matvec {label} {dtype}: {err}")
+        ms = cuda_ms(lambda: stencil.stencil_matvec(st, s, op.bc_dofs, xd),
+                     20)
+        nbytes = s.numel() * s.element_size() + 2 * n * xd.element_size()
+        a = csr.to(dtype)
+        err_csr = float(((a @ xd).double() - ref).abs().max()
+                        / ref.abs().max())
+        check(err_csr < tol, f"CSR product {dtype}: {err_csr}")
+        lib = cuda_ms(lambda: a @ xd, 20)
+        print(f"stencil matvec {label} {str(dtype)[6:]}: rel_err={err!r} "
+              f"ms={ms:.4f} bound_ms={nbytes / PEAK_BYTES_PER_S * 1e3:.4f} "
+              f"(bytes {nbytes}, {st.n_off} offsets) csr_ms={lib:.4f} "
+              f"(nnz {a.values().numel()}) on {card}", flush=True)
+
+
+def path9_hires(card: str) -> list:
+    """Path 9: the JAX package's hi-res multigrid study through the
+    port's entry points. Returns the kernels' records of its inputs."""
+    import dataclasses as dc
+    import statistics
+    import torch
+    from ocean_torch import system
+    from ocean_torch.config import OCPConfig
+    from ocean_torch.pipelines.limits import ensure_ud
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    u_d, x0 = ensure_ud(OCPConfig(ud_experiment="400_buoys",
+                                  unit_square_resolution=32),
+                        cache_dir=str(ROOT / "data" / "ud_torch"), device=dev)
+    check(u_d.shape == (400, 200, 2), f"path 9: u_d {u_d.shape}")
+    print(f"path 9 u_d (400 meshgrid buoys, synthesized at Nx=32): "
+          f"{time.perf_counter() - t0:.2f} s on {card}", flush=True)
+    small_reference("small reference, path 9 (linear_solver=\"mg\")",
+                    OCPConfig(ud_experiment="100_buoys",
+                              unit_square_resolution=8,
+                              use_line_search=False, num_steps=1,
+                              ode_backend="pallas", psrc_method="fused",
+                              linear_solver="mg"),
+                    lambda p: system.initial_control(p, 4), 1.0)
+
+    # --- 9a. Nx=64: "auto" picks two levels; three driver iterations ------
+    nx = 64
+    cfg = OCPConfig(ud_experiment="400_buoys", unit_square_resolution=nx,
+                    use_line_search=True, LR=1.0, num_steps=3,
+                    psrc_method="fused", ode_backend="pallas")
+    t0 = time.perf_counter()
+    prob = system.build_problem(cfg, u_d=u_d, x0=x0, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    ndof, _, n_p1 = square_sizes(nx)
+    levels = mg_levels(prob.mg)
+    check(prob.linear_solver == "mg" and prob.space.ndof == ndof
+          and len(levels) == 1
+          and prob.mg.space_c.ndof == square_sizes(nx // 2)[0]
+          and tuple(prob.mg.ainv_c.shape) == (square_sizes(nx // 2)[1],) * 2
+          and prob.mg.matvec == "stencil" and prob.projector.mode == "lu",
+          f"path 9a: not two levels with the stencil matvec: "
+          f"{prob.linear_solver}, {prob.space.ndof} dofs, {len(levels)}")
+    print(f"path 9a: auto chose {prob.linear_solver!r}, 2 levels, "
+          f"{prob.space.ndof} mixed dofs, coarse {prob.mg.space_c.ndof}, "
+          f"leaf {prob.mg.ainv_c.shape[0]} velocity dofs, matvec "
+          f"{prob.mg.matvec!r}, projector {prob.projector.mode!r}; set-up "
+          f"{build_s:.2f} s by part {json.dumps(prob.setup_seconds)} on "
+          f"{card}", flush=True)
+    prob = dc.replace(prob, solve_log=[])
+    f0 = system.initial_control(prob, case=4)
+    res, counts64 = mg_driver_run("path 9a (Nx=64)", cfg, prob, f0, card)
+    steady = [o + i for o, i in zip(res.outer_times[1:],
+                                    res.inner_times[1:])]
+    print(f"hires_nx64_gd_iteration_seconds: median "
+          f"{statistics.median(steady)!r} (outer + inner of iterations "
+          f"1-2: {steady!r}; set-up {build_s:.2f} s) on {card}", flush=True)
+    print(f"path 9a: J0 {res.j_array[0]!r} beside the TPU record "
+          f"{HIRES_J0[nx]} (information only)", flush=True)
+    records = path9_kernels(prob, res.last_fwd, counts64,
+                            f"rectangle, Nx={nx}, mg", card)
+    print_stages("path 9a (Nx=64, mg)", prob, res.f, res.lr)
+    stencil_times(prob, f"Nx={nx}", card)
+
+    # --- 9b. the dense LU against multigrid at Nx=64 ----------------------
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    prob_d = system.build_problem(dc.replace(cfg, linear_solver="dense"),
+                                  u_d=u_d, x0=x0, device=dev)
+    torch.cuda.synchronize()
+    print(f"path 9b: forced dense problem ({prob_d.space.ndof}² float64, "
+          f"Stokes LU) in {time.perf_counter() - t0:.2f} s on {card}",
+          flush=True)
+    steps = {}
+    for name, p in (("dense", prob_d), ("mg", prob)):
+        t0 = time.perf_counter()
+        steps[name] = system.gd_step(p, f0, cfg.LR)
+        torch.cuda.synchronize()
+        print(f"path 9b {name} gd_step (no line search): "
+              f"{time.perf_counter() - t0:.2f} s, newton_iters="
+              f"{steps[name].fwd.newton.iterations} on {card}", flush=True)
+    a, b = steps["dense"], steps["mg"]
+    dj = abs(float(a.J) - float(b.J)) / abs(float(a.J))
+    dq = float((a.f_new.quad - b.f_new.quad).abs().max()
+               / a.f_new.quad.abs().max())
+    check(not a.diverged and not b.diverged and dj <= 1e-9 and dq <= 1e-9,
+          f"path 9b: dense against mg: J rel {dj}, f_new rel {dq}")
+    print(f"path 9b: dense against mg at Nx={nx}: J rel {dj!r}, f_new "
+          f"{dq!r} of max|f_new|; peak device memory of 9b "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB on {card}",
+          flush=True)
+    del prob_d, steps, a, b
+    torch.cuda.empty_cache()
+
+    # --- 9c. Nx=192: three levels, the CG projection, one iteration -------
+    nx = 192
+    cfg = dc.replace(cfg, unit_square_resolution=nx, num_steps=1)
+    t0 = time.perf_counter()
+    prob = system.build_problem(cfg, u_d=u_d, x0=x0, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    ndof, _, n_p1 = square_sizes(nx)
+    levels = mg_levels(prob.mg)
+    check(prob.linear_solver == "mg" and prob.space.ndof == ndof
+          and len(levels) == 2 and levels[0].ainv_c is None
+          and prob.mg.space_c.ndof == square_sizes(nx // 2)[0]
+          and tuple(levels[1].ainv_c.shape) == (square_sizes(nx // 4)[1],) * 2
+          and all(c.matvec == "stencil" for c in levels)
+          and prob.space.n_p1 == n_p1 and prob.projector.mode == "cg",
+          f"path 9c: not three levels with the stencil matvec and the CG "
+          f"projection: {prob.linear_solver}, {len(levels)}, "
+          f"{prob.projector.mode}")
+    print(f"path 9c: {prob.space.ndof} mixed dofs, levels {nx} → {nx // 2} "
+          f"→ {nx // 4} (leaf {levels[1].ainv_c.shape[0]} velocity dofs), "
+          f"{n_p1} P1 dofs → projector {prob.projector.mode!r}; set-up "
+          f"{build_s:.2f} s by part {json.dumps(prob.setup_seconds)} on "
+          f"{card}", flush=True)
+    prob = dc.replace(prob, solve_log=[])
+    f0 = system.initial_control(prob, case=4)
+    res, counts192 = mg_driver_run("path 9c (Nx=192)", cfg, prob, f0, card)
+    j_f0 = float(system.cost(prob, res.last_fwd.u_values, f0.quad))
+    j_acc = float(system.cost(prob, system._forward(prob, res.f.quad)
+                              .u_values, res.f.quad))
+    check(res.lr > cfg.LR_MIN and j_acc < j_f0,
+          f"path 9c: Armijo step not accepted: J {j_acc} at LR {res.lr}, "
+          f"{j_f0} at the start")
+    print(f"path 9c: Armijo accepted LR {res.lr!r} after "
+          f"{res.inner_iterations[0]} probes, J {j_f0!r} → {j_acc!r}; "
+          f"hires_nx192_gd_iteration_seconds "
+          f"{res.outer_times[0] + res.inner_times[0]!r} (set-up "
+          f"{build_s:.2f} s) on {card}", flush=True)
+    print(f"path 9c: J0 {res.j_array[0]!r} beside the TPU record "
+          f"{HIRES_J0[nx]} (information only)", flush=True)
+    records += path9_kernels(prob, res.last_fwd, counts192,
+                             f"rectangle, Nx={nx}, mg", card)
+    print_stages("path 9c (Nx=192, mg)", prob, res.f, res.lr)
+    stencil_times(prob, f"Nx={nx}", card)
+    return records
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1859,6 +2190,9 @@ def main() -> int:
 
     # --- 17. path 8: the initial-control study at K=10⁴ ---------------------
     counts_p8 = path8_initial_control(u_d, x0, card)
+
+    # --- 18. path 9: the high-resolution multigrid path ----------------------
+    domain_records += path9_hires(card)
 
     launches = {n: counts1[n] for n in PATH1}
     launches.update({n: counts2[n] for n in PATH2 if n not in PATH1})

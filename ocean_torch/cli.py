@@ -6,12 +6,14 @@ and default, plus ``--device``.
     python -m ocean_torch.pipelines.ocp --device cpu --l-shape \\
         --l-shape-resolution 8 --num-steps 2
     python -m ocean_torch.pipelines.limits --ud-experiment 10000_buoys --fast
+    python -m ocean_torch.pipelines.limits --device cpu --linear-solver mg \\
+        --ud-experiment 100_buoys --unit-square-resolution 8 --num-steps 2
 
-A flag that selects a branch the port does not have yet (the multigrid
-solver, continuation, float32 chord sweeps) is
-accepted and makes the run raise ``NotImplementedError`` by name
-(``system.build_problem``). ``--dense-apply`` selects a TPU workaround
-and is accepted and ignored: the port factors in float64.
+A flag that selects a branch the port does not have yet (viscosity
+continuation, float32 chord sweeps) is accepted and makes the run raise
+``NotImplementedError`` by name (``system.build_problem``).
+``--dense-apply`` selects a TPU workaround and is accepted and ignored:
+the port factors in float64.
 """
 
 from __future__ import annotations
@@ -72,13 +74,20 @@ def build_parser(prog: str, defaults: OCPConfig) -> argparse.ArgumentParser:
                    help="∇u-projection mass solves")
     p.add_argument("--linear-solver", default=defaults.linear_solver,
                    choices=["auto", "dense", "mg"],
-                   help="saddle-point linear solver (mg is not ported)")
-    p.add_argument("--mg-pre", type=int, default=defaults.mg_pre)
+                   help="saddle-point linear solver: dense = float64 LU, "
+                        "mg = FGMRES + geometric multigrid (auto: mg past "
+                        "25,000 mixed dofs)")
+    p.add_argument("--mg-pre", type=int, default=defaults.mg_pre,
+                   help="V-cycle pre-smoothing sweeps (mg path)")
     p.add_argument("--mg-post", type=int, default=defaults.mg_post)
     p.add_argument("--mg-coarse-krylov", type=int,
-                   default=defaults.mg_coarse_krylov)
+                   default=defaults.mg_coarse_krylov,
+                   help="inner FGMRES iterations on the coarse operator at "
+                        "the linearization state (mg path; 0 = off)")
     p.add_argument("--mg-leaf-budget", type=int,
-                   default=defaults.mg_leaf_budget)
+                   default=defaults.mg_leaf_budget,
+                   help="velocity dofs of the coarsest level's dense "
+                        "inverse (mg path; 0 = 20,000)")
     p.add_argument("--newton-continuation", type=int,
                    default=defaults.newton_continuation,
                    help="viscosity-continuation rungs (not ported: any "

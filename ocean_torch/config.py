@@ -8,7 +8,8 @@ Same keys, defaults and quirks as the JAX ``OCPConfig``:
 
 Knobs that only select TPU workarounds (``dense_apply``) are accepted
 and ignored by the port; knobs that select branches the port does not
-have yet make ``system.build_problem`` raise ``NotImplementedError``.
+have yet (``newton_continuation``, ``newton_chord_f32``) make
+``system.build_problem`` raise ``NotImplementedError``.
 """
 
 from __future__ import annotations

@@ -25,6 +25,9 @@ class NewtonResult(NamedTuple):
     # LU factors of the last Jacobian the solver factorized (J(w0) under
     # reuse_factorization); the adjoint solve reuses them transposed
     fac: Optional[linalg.LUSolver] = None
+    # FGMRES restart cycles of each step (the multigrid Newton,
+    # solve/mg.py::newton_solve_mg); empty for the dense Newton
+    krylov_cycles: tuple = ()
 
 
 def newton_solve(residual_fn: Callable[[torch.Tensor], torch.Tensor],

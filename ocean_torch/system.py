@@ -1,13 +1,16 @@
 """The coupled OCP system: problem container and the stage functions of
-the gradient-descent iteration (port of the dense branch of
-``ocean_jax/system.py``, reference and consistent adjoint modes, on the
-[0,2]² square and the L-shape, either diagonal).
+the gradient-descent iteration (port of ``ocean_jax/system.py``: the
+dense and the multigrid linear solvers, reference and consistent adjoint
+modes, on the [0,2]² square and the L-shape, either diagonal).
 
-    _solve_ns          primal Navier–Stokes chord Newton solve
+    build_problem      the problem: mesh, space, the dense Stokes factor
+                       or the multigrid hierarchy (build_mg_hierarchy)
+    _solve_ns          primal Navier–Stokes Newton solve (dense or mg)
     _forward           NS + primal buoy ODE
     cost               J(u_values, f)
     adjoint_rhs        ∇u projection + adjoint ODE + point sources
     _solve_adjoint_flagged   adjoint RHS + adjoint NS solve
+                       (adjoint_operators, solve_adjoint_system)
     reduced_gradient   αf − z on Γ₁
     gd_step            one full GD iteration, with or without the Armijo
                        backtracking line search
@@ -17,7 +20,7 @@ the gradient-descent iteration (port of the dense branch of
 
 PyTorch runs eagerly, so host loops and Python ``if`` on ``.item()``
 values replace ``lax.while_loop``/``lax.scan``/``lax.cond``. Branches the
-port does not have yet (multigrid, continuation, float32 chord sweeps)
+port does not have yet (viscosity continuation, float32 chord sweeps)
 raise ``NotImplementedError``. The pipe meshes have no problem constructor
 here, as in the JAX package: they reach the mesh, ODE and point-source
 functions directly.
@@ -28,6 +31,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
+import time
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -50,12 +54,20 @@ from .ode.grideval import GridEval, make_grideval
 from .ops import linalg
 from .solve import (newton_solve, solve_operator, solve_operator_reuse_t,
                     GradProjector, NewtonResult)
+from .solve import mg as mg_mod
+from .solve.mg import MGContext
 
 _EPS = 1e-12
 
-# past this many mixed dofs the JAX package switches to its multigrid
-# Krylov path, which is not ported yet
+# past this many mixed dofs linear_solver="auto" picks the multigrid
+# Krylov path (the JAX package's rule; "dense" is honoured at any size)
 AUTO_MG_DOF_THRESHOLD = 25000
+
+# the coarsest multigrid level's velocity block gets an explicit dense
+# inverse (~20k velocity dofs: 3.2 GB in float64 while it is built, 1.6 GB
+# kept in float32); the levels above it are corrected recursively, so the
+# resolution is not capped by any dense factorization
+DENSE_INV_VEL_DOF_BUDGET = 20000
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,7 +78,7 @@ class OCPProblem:
     bq: BoundaryQuad                 # Γ₁ quadrature (the ds(1) measure)
     bc_dofs: torch.Tensor            # homogeneous Dirichlet velocity dofs Γ₂
     bc_vals: torch.Tensor
-    projector: GradProjector         # factorized P1 mass matrix
+    projector: GradProjector         # P1 mass solves (dense LU or CG)
     u_d: torch.Tensor                # (K, nt, 2) measurements
     x0: torch.Tensor                 # (K, 2) buoy seeds
     center: torch.Tensor             # (2,) domain center (escape target)
@@ -87,8 +99,19 @@ class OCPProblem:
     adjoint_mode: str = "reference"  # "reference" | "consistent"
     # float64 LU factors of the Stokes (w=0) Jacobian: the first matrix
     # every Newton solve factorizes is control-independent, so it is
-    # factorized once per problem
+    # factorized once per problem (dense solver only)
     fac0: Optional[linalg.LUSolver] = None
+    # the multigrid Krylov path (solve/mg.py) past the dense sizes
+    linear_solver: str = "dense"     # "dense" | "mg"
+    mg: Optional[MGContext] = None   # the hierarchy (mg solver only)
+    mg_pre: int = 2                  # V-cycle pre-smoothing sweeps
+    mg_post: int = 2                 # V-cycle post-smoothing sweeps
+    mg_coarse_krylov: int = 0        # inner FGMRES on the coarse operator
+    # set-up seconds by part, filled by build_problem
+    setup_seconds: dict = dataclasses.field(default_factory=dict)
+    # a list to append one record per NS and adjoint solve to (iterations,
+    # Krylov cycles, residuals), or None
+    solve_log: Optional[list] = None
 
     @property
     def K(self) -> int:
@@ -128,11 +151,12 @@ class GDStepResult(NamedTuple):
 # problem construction
 # ---------------------------------------------------------------------------
 
-def _domain_setup(cfg: OCPConfig):
+def _domain_setup(cfg: OCPConfig, resolution: Optional[int] = None):
     """Mesh, domain center and boundary predicates of the [0,2]² square
-    or, with ``cfg.L_shape``, of the L-shape (Γ₁ = {x=0} ∪ {y=2})."""
+    or, with ``cfg.L_shape``, of the L-shape (Γ₁ = {x=0} ∪ {y=2}), at the
+    config's resolution or at ``resolution`` (a multigrid level)."""
     if cfg.L_shape:
-        mesh = l_shape_mesh(cfg.L_shape_resolution,
+        mesh = l_shape_mesh(resolution or cfg.L_shape_resolution,
                             diagonal=cfg.mesh_diagonal)
         center = np.array([1.0, 0.5])
         gamma1 = lambda x: ((np.abs(x[:, 0]) < _EPS)
@@ -140,7 +164,7 @@ def _domain_setup(cfg: OCPConfig):
         gamma2 = lambda x: ((x[:, 0] > _EPS)
                             & (np.abs(2.0 - x[:, 1]) > _EPS))
         return mesh, center, gamma1, gamma2
-    n = cfg.unit_square_resolution
+    n = resolution or cfg.unit_square_resolution
     mesh = rectangle_mesh((0.0, 0.0), (2.0, 2.0), n, n,
                           diagonal=cfg.mesh_diagonal)
     center = np.array([1.0, 1.0])
@@ -151,17 +175,17 @@ def _domain_setup(cfg: OCPConfig):
     return mesh, center, gamma1, gamma2
 
 
-def resolve_adjoint_reuse(mode: str, nu: float) -> bool:
+def resolve_adjoint_reuse(mode: str, nu: float, linear_solver: str) -> bool:
     """The ``adjoint_reuse_lu`` knob: "auto" means on exactly when ν = 1,
-    where the adjoint operator is the transposed Jacobian (the port has
-    the dense path only)."""
+    where the adjoint operator is the transposed Jacobian, on the dense
+    path (the multigrid path holds no factors)."""
     if mode == "on":
         return True
     if mode == "off":
         return False
     if mode != "auto":
         raise ValueError(f"adjoint_reuse_lu must be auto|on|off, got {mode!r}")
-    return nu == 1.0
+    return nu == 1.0 and linear_solver == "dense"
 
 
 def _check_supported(cfg: OCPConfig) -> None:
@@ -170,8 +194,8 @@ def _check_supported(cfg: OCPConfig) -> None:
         "ode_backend": (cfg.ode_backend, ("gather", "grid", "pallas")),
         "psrc_method": (cfg.psrc_method, ("scatter", "binned", "sorted",
                                           "ozaki", "ozaki_pallas", "fused")),
-        "linear_solver": (cfg.linear_solver, ("auto", "dense")),
-        "newton_continuation": (cfg.newton_continuation, (0,)),
+        "linear_solver": (cfg.linear_solver, ("auto", "dense", "mg")),
+        "mg_matvec": (cfg.mg_matvec, ("stencil", "scatter")),
         "newton_chord_f32": (cfg.newton_chord_f32, (False,)),
     }
     for key, (val, ok) in unsupported.items():
@@ -187,26 +211,137 @@ def _as_f64(a, device) -> torch.Tensor:
     return a.to(device=device, dtype=torch.float64).contiguous()
 
 
+def _lap(seconds: dict, name: str, t0: float, device) -> float:
+    """Add the seconds since ``t0`` (device work included) to
+    ``seconds[name]``; returns the clock."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t = time.perf_counter()
+    seconds[name] = seconds.get(name, 0.0) + (t - t0)
+    return t
+
+
+def _make_mg_level(cfg: OCPConfig, n: int, device):
+    mesh, _, g1, g2 = _domain_setup(cfg, resolution=n)
+    space = make_space(mesh, device)
+    tags = mark_boundary_facets(mesh, g1, tag=1)
+    bq = make_boundary_quad(mesh, tags, tag=1, device=device)
+    bc_dofs, _ = dirichlet_velocity_bc(mesh, space, g2)
+    return space, bq, bc_dofs
+
+
+def _stokes_velocity_operator(space, bq, bc_dofs, nu):
+    """The frozen (w = 0) NS velocity block of a level: the smoothing
+    operator of the intermediate multigrid levels."""
+    op0 = assemble.ns_operator(
+        space, bq, torch.zeros(space.ndof, dtype=torch.float64,
+                               device=space.device), nu, bc_dofs)
+    return mg_mod.velocity_block(op0, 2 * space.n_p2)
+
+
+def build_mg_hierarchy(cfg: OCPConfig, space_f: TaylorHoodSpace,
+                       bq_f: BoundaryQuad, bc_dofs_f: torch.Tensor,
+                       n_fine: int, budget: Optional[int] = None,
+                       seconds: Optional[dict] = None) -> MGContext:
+    """The multigrid context chain: halve the resolution until the
+    coarsest velocity block fits ``budget`` velocity dofs (default
+    ``DENSE_INV_VEL_DOF_BUDGET``), freeze the Stokes velocity operator of
+    every intermediate level, and invert the leaf's in float64 on the
+    device, rounded to float32 once. Two levels up to Nx=96, three at
+    Nx=192, four at Nx=256. ``seconds``, where given, receives the set-up
+    seconds by part."""
+    if budget is None:
+        budget = DENSE_INV_VEL_DOF_BUDGET
+    seconds = {} if seconds is None else seconds
+    dev = space_f.device
+    t = time.perf_counter()
+    levels = [(space_f, bq_f, bc_dofs_f)]
+    n = n_fine
+    while True:
+        n = max(n // 2, 4)
+        levels.append(_make_mg_level(cfg, n, dev))
+        if 2 * levels[-1][0].n_p2 <= budget or n <= 4:
+            break
+    t = _lap(seconds, "mg_levels", t, dev)
+
+    space_l, bq_l, bc_l = levels[-1]
+    a_l = _stokes_velocity_operator(space_l, bq_l, bc_l,
+                                    cfg.viscosity).dense()
+    ainv = torch.linalg.inv(a_l).to(torch.float32)
+    del a_l
+    t = _lap(seconds, "mg_leaf_inverse", t, dev)
+
+    sub = None
+    for i in range(len(levels) - 2, -1, -1):
+        (sp_f, bq_i, _), (sp_c, bq_c, bc_c) = levels[i], levels[i + 1]
+        # the finest level applies its mixed operator too; below it only
+        # the velocity blocks are smoothed
+        ctx = mg_mod.build_mg_context(
+            sp_f, sp_c, bq_c, bc_c, cfg.viscosity, bq_f=bq_i,
+            use_stencil=(cfg.mg_matvec != "scatter"),
+            blocks=("mixed", "vel") if i == 0 else ("vel",))
+        t = _lap(seconds, "mg_transfers_and_stencil_tables", t, dev)
+        if i == len(levels) - 2:
+            ctx = dataclasses.replace(ctx, ainv_c=ainv)
+        else:
+            ctx = dataclasses.replace(
+                ctx, sub=sub, op_vel_c=_stokes_velocity_operator(
+                    sp_c, bq_c, bc_c, cfg.viscosity))
+            t = _lap(seconds, "mg_frozen_operators", t, dev)
+        sub = ctx
+    return sub
+
+
 def build_problem(cfg: OCPConfig, u_d=None, x0=None,
                   device="cuda") -> OCPProblem:
     """Build the problem on ``device`` from a config. Unless given, u_d/x0
     are the analytic 3-buoy measurements on the L-shape (``lshape_ud``)
     and are loaded from ``reference_runs/<ud_experiment>`` on the
-    square."""
+    square.
+
+    ``linear_solver="auto"`` picks the multigrid path above
+    ``AUTO_MG_DOF_THRESHOLD`` mixed dofs and the dense one below; a forced
+    "dense" or "mg" is honoured at any size (a dense problem too large
+    for the device fails with PyTorch's out-of-memory error)."""
     dev = resolve_device(device)
     _check_supported(cfg)
+    seconds = {}
+    t = time.perf_counter()
     mesh, center, gamma1, gamma2 = _domain_setup(cfg)
     space = make_space(mesh, dev)
     tags = mark_boundary_facets(mesh, gamma1, tag=1)
     bq = make_boundary_quad(mesh, tags, tag=1, device=dev)
     bc_dofs, bc_vals = dirichlet_velocity_bc(mesh, space, gamma2)
-    if space.ndof > AUTO_MG_DOF_THRESHOLD:
+    t = _lap(seconds, "mesh_and_space", t, dev)
+    linear_solver = cfg.linear_solver
+    if linear_solver == "auto":
+        linear_solver = ("mg" if space.ndof > AUTO_MG_DOF_THRESHOLD
+                         else "dense")
+    if cfg.newton_continuation != 0:
         raise NotImplementedError(
-            f"ocean_torch: {space.ndof} mixed dofs needs the multigrid "
-            "path, which is not ported yet")
-    fac0 = linalg.factorize(assemble.ns_operator(
-        space, bq, torch.zeros(space.ndof, dtype=torch.float64, device=dev),
-        cfg.viscosity, bc_dofs).dense())
+            f"ocean_torch: newton_continuation={cfg.newton_continuation!r} "
+            "is not ported yet, on either linear solver (this problem's "
+            f"linear_solver is {linear_solver!r}; supported: (0,))")
+    mg_ctx = fac0 = None
+    if linear_solver == "mg":
+        n_fine = (cfg.L_shape_resolution if cfg.L_shape
+                  else cfg.unit_square_resolution)
+        mg_ctx = build_mg_hierarchy(cfg, space, bq, bc_dofs, n_fine,
+                                    budget=cfg.mg_leaf_budget or None,
+                                    seconds=seconds)
+        t = time.perf_counter()
+    else:
+        fac0 = linalg.factorize(assemble.ns_operator(
+            space, bq, torch.zeros(space.ndof, dtype=torch.float64,
+                                   device=dev),
+            cfg.viscosity, bc_dofs).dense())
+        t = _lap(seconds, "fac0", t, dev)
+    projector = GradProjector.build(space, solver=cfg.projector_solver)
+    t = _lap(seconds, "projector", t, dev)
+    grid = (make_grideval(space)
+            if cfg.ode_backend != "gather" or cfg.psrc_method == "fused"
+            else None)
+    _lap(seconds, "grid_tables", t, dev)
 
     nt = cfg.num_time_steps
     if (u_d is None or x0 is None) and cfg.L_shape:
@@ -221,8 +356,7 @@ def build_problem(cfg: OCPConfig, u_d=None, x0=None,
             f"u_d has {u_d.shape[1]} time samples but int(T/dt) = {nt}")
     return OCPProblem(
         space=space, bq=bq, bc_dofs=bc_dofs, bc_vals=bc_vals,
-        projector=GradProjector.build(space, solver=cfg.projector_solver),
-        u_d=u_d, x0=x0,
+        projector=projector, u_d=u_d, x0=x0,
         center=torch.as_tensor(center, dtype=torch.float64, device=dev),
         nu=cfg.viscosity, alpha=cfg.alpha_scaled, h=cfg.dt, nt=nt,
         refine_iters=cfg.refine_iters,
@@ -230,13 +364,13 @@ def build_problem(cfg: OCPConfig, u_d=None, x0=None,
         newton_correction_iters=cfg.newton_correction_iters,
         psrc_method=cfg.psrc_method,
         ode_backend=cfg.ode_backend,
-        grid=(make_grideval(space)
-              if cfg.ode_backend != "gather" or cfg.psrc_method == "fused"
-              else None),
-        adjoint_reuse_lu=resolve_adjoint_reuse(cfg.adjoint_reuse_lu,
-                                               cfg.viscosity),
+        grid=grid,
+        adjoint_reuse_lu=resolve_adjoint_reuse(
+            cfg.adjoint_reuse_lu, cfg.viscosity, linear_solver),
         adjoint_mode=cfg.adjoint_mode,
-        fac0=fac0)
+        fac0=fac0, linear_solver=linear_solver, mg=mg_ctx,
+        mg_pre=cfg.mg_pre, mg_post=cfg.mg_post,
+        mg_coarse_krylov=cfg.mg_coarse_krylov, setup_seconds=seconds)
 
 
 def lshape_ud(cfg: OCPConfig) -> Tuple[np.ndarray, np.ndarray]:
@@ -292,8 +426,16 @@ def fd_direction(prob: OCPProblem) -> Control:
 # stage functions
 # ---------------------------------------------------------------------------
 
+def _log_solve(prob: OCPProblem, **record) -> None:
+    if prob.solve_log is not None:
+        prob.solve_log.append(record)
+
+
 def _solve_ns(prob: OCPProblem, f_quad: torch.Tensor) -> NewtonResult:
-    """Primal NS Newton solve from w = 0."""
+    """Primal NS Newton solve from w = 0: dense steps (chord on the
+    Stokes factor with ``newton_reuse_lu``), or on the multigrid path
+    float32 FGMRES steps preconditioned by the hierarchy frozen at w = 0
+    (``solve/mg.py::newton_solve_mg``)."""
     def residual(w):
         return assemble.ns_residual(prob.space, prob.bq, w, f_quad, prob.nu)
 
@@ -303,10 +445,30 @@ def _solve_ns(prob: OCPProblem, f_quad: torch.Tensor) -> NewtonResult:
 
     w0 = torch.zeros(prob.space.ndof, dtype=torch.float64,
                      device=prob.device)
-    return newton_solve(residual, operator, w0, prob.bc_dofs, prob.bc_vals,
-                        reuse_factorization=prob.newton_reuse_lu,
-                        correction_iters=prob.newton_correction_iters,
-                        fac0=prob.fac0)
+    if prob.linear_solver == "mg":
+        coarse_operator = None
+        if prob.mg_coarse_krylov > 0:
+            # the state-assembled coarse operator of the convection-aware
+            # inner Krylov (solve/mg.py::make_block_preconditioner)
+            def coarse_operator(w):
+                return assemble.ns_operator(
+                    prob.mg.space_c, prob.mg.bq_c,
+                    mg_mod.inject_state(prob.mg, prob.space, w), prob.nu,
+                    prob.mg.bc_dofs_c)
+        res = mg_mod.newton_solve_mg(
+            residual, operator, coarse_operator, prob.mg, prob.space, w0,
+            prob.bc_dofs, prob.bc_vals, pre=prob.mg_pre, post=prob.mg_post,
+            coarse_krylov=prob.mg_coarse_krylov)
+    else:
+        res = newton_solve(residual, operator, w0, prob.bc_dofs,
+                           prob.bc_vals,
+                           reuse_factorization=prob.newton_reuse_lu,
+                           correction_iters=prob.newton_correction_iters,
+                           fac0=prob.fac0)
+    _log_solve(prob, solve="ns_newton", iterations=res.iterations,
+               residual_norm=res.residual_norm, converged=res.converged,
+               krylov_cycles=list(res.krylov_cycles))
+    return res
 
 
 class _DifferentiableNS(torch.autograd.Function):
@@ -443,19 +605,56 @@ def adjoint_rhs(prob: OCPProblem, fwd: ForwardState) -> torch.Tensor:
     return _adjoint_sources(prob, u, mu, *state)
 
 
-def _solve_adjoint_flagged(prob: OCPProblem, fwd: ForwardState
-                           ) -> Tuple[torch.Tensor, bool]:
-    """Adjoint RHS + adjoint NS solve: (mixed adjoint state z, converged).
-    The dense paths are accurate unconditionally (the reuse path falls
-    back to a fresh factorization), so the flag is True."""
-    b = adjoint_rhs(prob, fwd)
-    op = assemble.adjoint_operator(prob.space, prob.bq, fwd.w, prob.bc_dofs)
+def adjoint_operators(prob: OCPProblem, w: torch.Tensor):
+    """(fine adjoint operator, coarse adjoint operator or None). The
+    coarse one, at the injected state, feeds the inner Krylov of the
+    coarse correction when ``mg_coarse_krylov`` > 0."""
+    op = assemble.adjoint_operator(prob.space, prob.bq, w, prob.bc_dofs)
+    op_c = None
+    if prob.linear_solver == "mg" and prob.mg_coarse_krylov > 0:
+        op_c = assemble.adjoint_operator(
+            prob.mg.space_c, prob.mg.bq_c,
+            mg_mod.inject_state(prob.mg, prob.space, w), prob.mg.bc_dofs_c)
+    return op, op_c
+
+
+def solve_adjoint_system(prob: OCPProblem, fwd: ForwardState,
+                         b: torch.Tensor, op, op_c=None
+                         ) -> Tuple[torch.Tensor, bool]:
+    """The adjoint NS solve op z = b on the problem's linear solver:
+    (z, converged). The dense paths are accurate unconditionally (the
+    reuse path falls back to a fresh factorization), so there the flag is
+    True; on the multigrid path it says whether the float64 refinement
+    rounds reached 1e-11·‖b‖."""
+    if prob.linear_solver == "mg":
+        # the adjoint Laplacian has unit viscosity (the reference's form)
+        # while the frozen hierarchy is assembled at ν: the rung scaling
+        # nu_scale = 1/ν applies
+        sol = mg_mod.solve_operator_mg(
+            op, op_c, prob.mg, prob.space, b, prob.bc_vals,
+            pre=prob.mg_pre, post=prob.mg_post,
+            coarse_krylov=prob.mg_coarse_krylov, nu_scale=1.0 / prob.nu)
+        _log_solve(prob, solve="adjoint", rounds=sol.rounds,
+                   krylov_cycles=sol.iterations,
+                   relative_residual=sol.residual_norm / max(sol.b_norm,
+                                                             1e-300),
+                   converged=sol.converged)
+        return sol.x, sol.converged
     if prob.adjoint_reuse_lu and fwd.newton.fac is not None:
         z, _ = solve_operator_reuse_t(op, b, prob.bc_vals, fwd.newton.fac,
                                       refine_iters=prob.refine_iters)
         return z, True
     return solve_operator(op, b, prob.bc_vals,
                           refine_iters=prob.refine_iters), True
+
+
+def _solve_adjoint_flagged(prob: OCPProblem, fwd: ForwardState
+                           ) -> Tuple[torch.Tensor, bool]:
+    """Adjoint RHS + adjoint NS solve: (mixed adjoint state z, converged)
+    (``solve_adjoint_system``)."""
+    b = adjoint_rhs(prob, fwd)
+    op, op_c = adjoint_operators(prob, fwd.w)
+    return solve_adjoint_system(prob, fwd, b, op, op_c)
 
 
 def reduced_gradient(prob: OCPProblem, f: Control,

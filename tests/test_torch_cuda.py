@@ -577,3 +577,53 @@ def test_run_ensemble_on_card(dev):
     assert torch.equal(gpu.lr_history, cpu.lr_history)
     assert torch.equal(gpu.escaped_history, cpu.escaped_history)
     assert _rel(gpu.j_history, cpu.j_history) < 1e-12
+
+
+def test_mg_gd_step_on_card(dev):
+    """The multigrid path (FGMRES, V-cycle, stencil matvec, CG
+    projection) on the card against the CPU at Nx=8: the same Newton
+    iteration count, J within 1e-10 and f_new within 1e-8 relative."""
+    from ocean_torch import system
+    res = {}
+    for where in ("cpu", "cuda"):
+        prob = _small_problem(where, linear_solver="mg",
+                              projector_solver="cg")
+        assert prob.mg.matvec == "stencil" and prob.projector.mode == "cg"
+        res[where] = system.gd_step(prob, system.initial_control(prob, 0),
+                                    5.0, use_line_search=True)
+    gpu, cpu = res["cuda"], res["cpu"]
+    assert not gpu.diverged and gpu.lr == cpu.lr
+    assert gpu.fwd.newton.iterations == cpu.fwd.newton.iterations
+    assert abs(float(gpu.J) / float(cpu.J) - 1) < 1e-10
+    assert _rel(gpu.f_new.quad, cpu.f_new.quad) < 1e-8
+
+
+def test_hires_sizes_and_stencil_matvec_on_card(dev):
+    """Path 9's sizes on the card: "auto" gives two levels at Nx=64 and
+    three with the CG projection at Nx=192; the stencil matvec agrees with
+    the element matvec in float64 (1e-12) and float32 (1e-4) there."""
+    from ocean_torch import system
+    from ocean_torch.config import OCPConfig
+    from ocean_torch.fem import assemble
+    from ocean_torch.ops import stencil
+    for nx, depth, projector in ((64, 1, "lu"), (192, 2, "cg")):
+        cfg = OCPConfig(ud_experiment="4_buoys", unit_square_resolution=nx,
+                        T=0.05, dt=0.005)
+        prob = system.build_problem(cfg, u_d=np.zeros((4, 10, 2)),
+                                    x0=np.ones((4, 2)), device="cuda")
+        ctx, levels = prob.mg, 1
+        while ctx.sub is not None:
+            ctx, levels = ctx.sub, levels + 1
+        assert prob.linear_solver == "mg" and levels == depth
+        assert prob.projector.mode == projector and ctx.ainv_c is not None
+        op = assemble.ns_operator(
+            prob.space, prob.bq, torch.zeros(prob.space.ndof,
+                                             dtype=torch.float64,
+                                             device="cuda"),
+            prob.nu, prob.bc_dofs)
+        x = torch.randn(prob.space.ndof, dtype=torch.float64, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(nx))
+        ref = op.matvec64(x)
+        for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-4)):
+            y = stencil.matvec_of(prob.mg.st_mixed, dtype)(op)(x)
+            assert _rel(y.double(), ref) < tol

@@ -240,10 +240,11 @@ def test_cli_flags_give_the_jax_config(argv):
 
 
 @pytest.mark.parametrize("flags,name", [
-    (["--linear-solver", "mg"], "linear_solver"),
+    (["--linear-solver", "mg", "--newton-continuation", "2"],
+     "linear_solver"),
     (["--newton-continuation", "3"], "newton_continuation"),
     (["--newton-chord-f32"], "newton_chord_f32"),
-    (["--projector-solver", "cg"], "solver='cg'"),
+    (["--load-q", "q.h5"], "load_dolfin_control"),
 ])
 def test_cli_unported_flags_raise_by_name(tmp_path, flags, name):
     with pytest.raises(NotImplementedError, match=name):

@@ -110,7 +110,8 @@ def test_unported_branches_raise():
     base = dict(u_d=np.zeros((100, 200, 2)), x0=seed_positions(100),
                 device="cpu")
     for kw in (dict(newton_chord_f32=True),
-               dict(linear_solver="mg"), dict(newton_continuation=3)):
+               dict(linear_solver="mg", newton_continuation=2),
+               dict(newton_continuation=3)):
         with pytest.raises(NotImplementedError):
             system.build_problem(OCPConfig(**{**FAST, **kw}), **base)
     # the L-shape, the "left" diagonal, the "grid" ODE backend and the
