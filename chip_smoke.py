@@ -132,14 +132,39 @@ Phases, in order; any failure exits non-zero before the last line:
     control: J within 1e-9 relative, f_new within 1e-9·max|f_new|. 9c at
     Nx=192 (333,699 dofs, levels 192 → 96 → 48, 37,249 P1 dofs → CG
     projection): one Armijo iteration, every solve converged, the
-    accepted probe's J below J₀, its seconds, then as in 9a.
+    accepted probe's J below J₀, its seconds, then as in 9a;
+19. path 10, the reference's golden viscosity ν = 0.01 and the float32
+    dense knobs. 10a: the golden configuration (Nx=32, 10 buoys at
+    x = 0.1, u_d synthesized at ν = 1 into ``data/ud_torch/10_buoys``)
+    through ``pipelines.ocp.run`` with 6 continuation rungs and the
+    --fast bundle (chord Newton, kernels 1–3, ``dense_apply="inverse"``),
+    Armijo, 3 iterations: every rung and Newton solve converged (the
+    solve log), the checks of path 3, J₀ beside the TPU record
+    (information), vanilla Newton at the initial control reports
+    ``converged=False`` with a residual above 1, and kernels 1–3 on the
+    initial control's escaping buoys against their plain versions;
+    ``golden_nu001_gd_iteration_seconds``. 10b: the hi-res study at ν =
+    0.01 (Nx=64, mg, 400 buoys, 6 rungs; the Armijo search starts at 2⁻⁷,
+    the LR it accepts from the study's LR 1), 2 driver iterations: every
+    rung and solve the run went on with converged (rejected probes may
+    stall), J₀ within 1e-6 of the TPU record, J₁ and the
+    Newton iterations beside it, ``hires_nx64_nu001_gd_iteration_seconds``;
+    one forward with a forced dense ladder at the initial control agrees
+    with mg on J₀ within 1e-9, with its peak device memory. 10c: path 1's
+    step with ``dense_apply="inverse"``, with ``newton_chord_f32`` and with
+    both: J within 1e-9 relative of path 1's and f_new within
+    1e-8·max|f_new|, the kernels' counts, the median of 3 steps, the
+    stages.
 Phase 4 also runs the hard inputs of the "left" diagonal and the pipes.
+Path 3 runs with ``dense_apply="inverse"`` (``limits.run``'s fast paths,
+as in the JAX package).
 
 The line before the last is the kernels' JSON record, one entry per
 kernel and geometry (``geometry``); the last line is ``{"ok": true,
 "device": {...}}``. Imports nothing of JAX.
 """
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -1573,37 +1598,53 @@ def mg_levels(ctx) -> list:
     return out
 
 
-def mg_driver_run(name: str, cfg, prob, f0, card: str):
+def mg_driver_run(name: str, cfg, prob, f0, card: str,
+                  rejected_may_stall: bool = False, forwards=None):
     """Counts set to 0, ``cfg.num_steps`` driver iterations, counts read;
     every NS and adjoint solve of the run converged (the problem's solve
-    log); per iteration J, probes, each Newton solve's iterations and
-    FGMRES cycles a step, the adjoint's rounds and final relative
-    residual, and the seconds. Returns (result, counts)."""
+    log; with ``rejected_may_stall`` the NS solves of rejected line-search
+    probes may stall, and their count is printed); per iteration J,
+    probes, each Newton solve's iterations and FGMRES cycles a step, the
+    rungs' Newton iterations, the adjoint's rounds and final relative
+    residual, and the seconds. ``forwards``, a list where given, receives
+    each iteration's forward state. Returns (result, counts)."""
     import torch
     from ocean_torch import kernels
     from ocean_torch.opt.driver import run_gradient_descent
 
     marks = []
+
+    def on_iteration(i, f, fwd, z, j):
+        marks.append(len(prob.solve_log))
+        if forwards is not None:
+            forwards.append(fwd)
+
     kernels.reset_launch_counts()
-    res = run_gradient_descent(
-        cfg, prob, f0, on_iteration=lambda *a: marks.append(
-            len(prob.solve_log)), verbose=False)
+    res = run_gradient_descent(cfg, prob, f0, on_iteration=on_iteration,
+                               verbose=False)
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     start = 0
     for i, end in enumerate(marks):
         recs, start = prob.solve_log[start:end], end
         ns = [r for r in recs if r["solve"] == "ns_newton"]
+        rungs = [r["iterations"] for r in recs if r["solve"] == "ns_rung"]
         adj = [r for r in recs if r["solve"] == "adjoint"]
-        check(len(adj) == 1 and all(r["converged"] for r in recs),
+        used, rejected = used_forwards(recs)
+        stalled = sum(not r["converged"] for g in rejected for r in g)
+        check(len(adj) == 1 and adj[0]["converged"]
+              and all(r["converged"] for g in used for r in g)
+              and (rejected_may_stall or not stalled),
               f"{name}: iteration {i}: a solve did not converge: {recs}")
         print(f"{name} iteration {i}: J={res.j_array[i]!r} probes="
               f"{res.inner_iterations[i]} newton_iterations="
               f"{[r['iterations'] for r in ns]} fgmres_cycles_per_newton_step="
-              f"{[r['krylov_cycles'] for r in ns]} adjoint_rounds="
+              f"{[r['krylov_cycles'] for r in ns]} rung_newton_iterations="
+              f"{rungs} adjoint_rounds="
               f"{adj[0]['rounds']} adjoint_fgmres_cycles="
               f"{adj[0]['krylov_cycles']} adjoint_relative_residual="
-              f"{adj[0]['relative_residual']!r} seconds="
+              f"{adj[0]['relative_residual']!r} stalled_rejected_probe_solves="
+              f"{stalled} seconds="
               f"{res.outer_times[i] + res.inner_times[i]!r} on {card}",
               flush=True)
     n = res.iterations_run
@@ -1622,21 +1663,27 @@ def mg_driver_run(name: str, cfg, prob, f0, card: str):
     return res, counts
 
 
-def path9_kernels(prob, fwd, counts: dict, geometry: str, card: str):
-    """Kernels 1–3 on path 9's inputs (the primal ODE's velocity image in
-    device memory), each held to its plain version and timed as in
-    phase 4. Returns their records."""
-    import torch
+def image_in_device_memory(ge, geometry: str) -> None:
+    """Path 9's meshes: the primal ODE's velocity image is too large for
+    shared memory and is read from device memory."""
     from ocean_torch.ode import cuda_ode
-    from ocean_torch.ode.grideval import grad_to_grid, velocity_to_grid
 
-    ge, K, nt, h = prob.grid, prob.K, prob.nt, prob.h
     Hy, Hx = ge.hg_shape
     check(cuda_ode.shared_bytes(ge) < 16 * Hy * Hx,
           f"{geometry}: the velocity image would fit in shared memory")
     print(f"{geometry}: primal ODE image {16 * Hy * Hx} B in device memory "
           f"(dynamic shared memory {cuda_ode.shared_bytes(ge)} B a block)",
           flush=True)
+
+
+def state_kernels(prob, fwd, counts: dict, geometry: str, card: str):
+    """Kernels 1–3 on the inputs of a path's forward state ``fwd``, each
+    held to its plain version and timed as in phase 4. Returns their
+    records, ``launches`` from the path's ``counts``."""
+    import torch
+    from ocean_torch.ode.grideval import grad_to_grid, velocity_to_grid
+
+    ge, K, nt, h = prob.grid, prob.K, prob.nt, prob.h
     u, _ = prob.space.split(fwd.w)
     err, ms, plain, _ = primal_ode_check(ge, velocity_to_grid(ge, u),
                                          prob.x0, h, nt, geometry, card)
@@ -1776,7 +1823,8 @@ def path9_hires(card: str) -> list:
           f"1-2: {steady!r}; set-up {build_s:.2f} s) on {card}", flush=True)
     print(f"path 9a: J0 {res.j_array[0]!r} beside the TPU record "
           f"{HIRES_J0[nx]} (information only)", flush=True)
-    records = path9_kernels(prob, res.last_fwd, counts64,
+    image_in_device_memory(prob.grid, f"rectangle, Nx={nx}, mg")
+    records = state_kernels(prob, res.last_fwd, counts64,
                             f"rectangle, Nx={nx}, mg", card)
     print_stages("path 9a (Nx=64, mg)", prob, res.f, res.lr)
     stencil_times(prob, f"Nx={nx}", card)
@@ -1850,11 +1898,249 @@ def path9_hires(card: str) -> list:
           f"{build_s:.2f} s) on {card}", flush=True)
     print(f"path 9c: J0 {res.j_array[0]!r} beside the TPU record "
           f"{HIRES_J0[nx]} (information only)", flush=True)
-    records += path9_kernels(prob, res.last_fwd, counts192,
+    image_in_device_memory(prob.grid, f"rectangle, Nx={nx}, mg")
+    records += state_kernels(prob, res.last_fwd, counts192,
                              f"rectangle, Nx={nx}, mg", card)
     print_stages("path 9c (Nx=192, mg)", prob, res.f, res.lr)
     stencil_times(prob, f"Nx={nx}", card)
     return records
+
+
+# the JAX package's TPU records at ν = 0.01: results/golden_nu001/
+# J_array.npy (Nx=32, dense, 10 buoys, 6 rungs, --fast) and
+# results/hires_mg/summary.json, "nx64_nu0.01" (Nx=64, mg, 400 buoys)
+GOLDEN_J = (2.334394094080693, 1.673866821199553, 1.4736841877039706)
+HIRES_NU001_J = (54.2790339299728, 50.5543340684992, 42.097201303658494)
+HIRES_NU001_NEWTON0 = 24
+
+
+@contextlib.contextmanager
+def solve_logs():
+    """Problems built inside keep a solve log (one record per rung, NS and
+    adjoint solve), also where a pipeline builds its own."""
+    from ocean_torch import system
+
+    build = system.build_problem
+    system.build_problem = lambda *a, **k: dataclasses.replace(
+        build(*a, **k), solve_log=[])
+    try:
+        yield
+    finally:
+        system.build_problem = build
+
+
+def used_forwards(log):
+    """Split a driver run's solve log into its forwards (each a run of
+    "ns_rung" records and its "ns_newton" record): (the forwards whose
+    state the run went on with, the rejected line-search probes). The run
+    goes on with the last forward before each adjoint solve and with the
+    last forward of the log (the final accepted probe)."""
+    groups, cur, used_ids = [], [], set()
+    for r in log:
+        if r["solve"] == "adjoint":
+            used_ids.add(len(groups) - 1)
+            continue
+        cur.append(r)
+        if r["solve"] == "ns_newton":
+            groups.append(cur)
+            cur = []
+    used_ids.add(len(groups) - 1)
+    return ([g for i, g in enumerate(groups) if i in used_ids],
+            [g for i, g in enumerate(groups) if i not in used_ids])
+
+
+def rung_summary(log) -> str:
+    return ", ".join(f"ν={r['nu']:.4g}: {r['iterations']}"
+                     + ("" if r["converged"] else " STALLED")
+                     for r in log if r["solve"] == "ns_rung")
+
+
+def path10a_golden(tmp: str, card: str):
+    """10a: the reference's golden configuration (10 buoys at x=0.1, ν =
+    0.01, Nx=32) through ``pipelines.ocp.run`` with 6 rungs and the --fast
+    bundle. Returns (kernel records, launches)."""
+    import torch
+    from ocean_torch import kernels, system
+    from ocean_torch.config import OCPConfig
+    from ocean_torch.pipelines import ocp
+    from ocean_torch.pipelines.limits import ensure_ud
+
+    dev = torch.device("cuda")
+    cache = str(ROOT / "data" / "ud_torch")
+    # u_d at ν = 1 (the recipe that reproduces the 400-buoy record), never
+    # at ν = 0.01 into the shared cache
+    u_d, _ = ensure_ud(OCPConfig(ud_experiment="10_buoys",
+                                 unit_square_resolution=32), cache_dir=cache,
+                       device=dev)
+    check(u_d.shape == (10, 200, 2), f"path 10a: u_d {u_d.shape}")
+    cfg = OCPConfig(ud_experiment="10_buoys", unit_square_resolution=32,
+                    viscosity=0.01, newton_continuation=6,
+                    use_line_search=True, num_steps=3, newton_reuse_lu=True,
+                    psrc_method="fused", ode_backend="pallas",
+                    dense_apply="inverse", reference_runs_dir=cache,
+                    out_dir=str(Path(tmp) / "golden"))
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with solve_logs():
+        res, prob = ocp.run(cfg, verbose=False, device=dev)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    print(f"path 10a (ocp.run, golden ν=0.01, Nx=32, 10 buoys, 6 rungs, "
+          f"--fast): {res.iterations_run} iterations in "
+          f"{time.perf_counter() - t0:.2f} s with set-up and artifacts",
+          flush=True)
+    check(prob.linear_solver == "dense" and prob.newton_continuation == 6
+          and prob.projector.mode == "inverse" and prob.K == 10,
+          "path 10a: not the golden configuration")
+    used, rejected = used_forwards(prob.solve_log)
+    check(len(used) == cfg.num_steps + 1
+          and all(r["converged"] for g in used for r in g),
+          f"path 10a: a rung or a Newton solve of a forward the run went on "
+          f"with did not converge: {used}")
+    stalled = sum(not g[-1]["converged"] for g in rejected)
+    print(f"path 10a: first forward's rungs (Newton iterations) "
+          f"{rung_summary(used[0])}; final solve {used[0][-1]['iterations']};"
+          f" every rung and solve of the {len(used)} forwards the run went "
+          f"on with converged; {stalled} of {len(rejected)} rejected "
+          f"line-search probes stalled", flush=True)
+    check_run("path 10a", res, prob, cfg, counts,
+              "golden_nu001_gd_iteration_seconds", card)
+    dj = abs(res.j_array[0] - GOLDEN_J[0]) / GOLDEN_J[0]
+    print(f"path 10a: J0 {res.j_array[0]!r} beside the TPU record "
+          f"{GOLDEN_J[0]} (relative gap {dj!r}; not held: the record's "
+          f"u_d is the reference's); J {res.j_array!r} beside "
+          f"{list(GOLDEN_J)}", flush=True)
+    # the failure the ladder exists for, at the same control: the
+    # reference's Newton from w = 0, a float64 LU a step
+    vanilla = dataclasses.replace(prob, newton_continuation=0,
+                                  newton_reuse_lu=False, fac0=None,
+                                  solve_log=[])
+    f0 = system.initial_control(vanilla, case=0)
+    r0 = system._solve_ns(vanilla, f0.quad)
+    check(not r0.converged and r0.residual_norm > 1.0,
+          f"path 10a: vanilla Newton converged={r0.converged}, residual "
+          f"{r0.residual_norm}")
+    print(f"path 10a: vanilla Newton (no rungs) at the initial control: "
+          f"converged={r0.converged} residual {r0.residual_norm!r} after "
+          f"{r0.iterations} iterations", flush=True)
+    # kernels 1–3 on the strong flow of the initial control, where buoys
+    # escape
+    fwd0 = system._forward(prob, f0.quad)
+    escaped = int(fwd0.mask.sum())
+    check(escaped >= 1, "path 10a: no buoy escapes at the initial control")
+    print(f"path 10a: {escaped} of 10 buoys escape at the initial control",
+          flush=True)
+    records = state_kernels(prob, fwd0, counts, "rectangle, Nx=32, ν=0.01, "
+                            "10 buoys", card)
+    return records, counts
+
+
+def path10b_hires(card: str):
+    """10b: the hi-res study at ν = 0.01 (Nx=64, mg, 400 buoys, Armijo, 6
+    rungs), two driver iterations; then one forward with a forced dense
+    ladder at the initial control against mg. The search starts at 2⁻⁷,
+    the LR it accepts from the study's LR 1 after 8 probes (502 s of
+    mostly stalled rungs on an NVIDIA H100 at 700 W), so J and the states
+    are those of LR 1."""
+    import torch
+    from ocean_torch import system
+    from ocean_torch.config import OCPConfig
+    from ocean_torch.pipelines.limits import ensure_ud
+
+    dev = torch.device("cuda")
+    u_d, x0 = ensure_ud(OCPConfig(ud_experiment="400_buoys",
+                                  unit_square_resolution=32),
+                        cache_dir=str(ROOT / "data" / "ud_torch"), device=dev)
+    cfg = OCPConfig(ud_experiment="400_buoys", unit_square_resolution=64,
+                    viscosity=0.01, newton_continuation=6,
+                    use_line_search=True, LR=2.0 ** -7, num_steps=2,
+                    psrc_method="fused", ode_backend="pallas")
+    t0 = time.perf_counter()
+    prob = dataclasses.replace(
+        system.build_problem(cfg, u_d=u_d, x0=x0, device=dev), solve_log=[])
+    torch.cuda.synchronize()
+    check(prob.linear_solver == "mg" and prob.newton_continuation == 6,
+          "path 10b: not the mg ladder")
+    print(f"path 10b: Nx=64 ν=0.01 mg problem in "
+          f"{time.perf_counter() - t0:.2f} s on {card}", flush=True)
+    f0 = system.initial_control(prob, case=4)
+    fwds = []
+    res, _ = mg_driver_run("path 10b (Nx=64, ν=0.01)", cfg, prob, f0, card,
+                           rejected_may_stall=True, forwards=fwds)
+    first = prob.solve_log[:next(
+        i for i, r in enumerate(prob.solve_log)
+        if r["solve"] == "ns_newton") + 1]
+    print(f"path 10b: iteration 0's first forward: rungs {rung_summary(first)}"
+          f"; final Newton {first[-1]['iterations']} beside the record's "
+          f"{HIRES_NU001_NEWTON0}, FGMRES cycles {first[-1]['krylov_cycles']}",
+          flush=True)
+    secs = [o + i for o, i in zip(res.outer_times, res.inner_times)]
+    print(f"hires_nx64_nu001_gd_iteration_seconds: {secs[-1]!r} (iteration "
+          f"1; iteration 0 {secs[0]!r} with {res.inner_iterations[0]} "
+          f"probes) on {card}", flush=True)
+    dj0 = abs(res.j_array[0] - HIRES_NU001_J[0]) / HIRES_NU001_J[0]
+    print(f"path 10b: J {res.j_array!r} beside the TPU record "
+          f"{list(HIRES_NU001_J[:2])}; J0 relative gap {dj0!r}", flush=True)
+    check(dj0 < 1e-6, f"path 10b: J0 {res.j_array[0]} off the TPU record")
+    # the forced dense ladder at the initial control, without the mg
+    # problem and the Stokes LU (the ladder factorizes J(w) each step)
+    j_mg = float(system.cost(prob, fwds[0].u_values, f0.quad))
+    del prob, fwds, res
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    prob_d = dataclasses.replace(system.build_problem(
+        dataclasses.replace(cfg, linear_solver="dense"), u_d=u_d, x0=x0,
+        device=dev), solve_log=[], fac0=None)
+    fwd_d = system._forward(prob_d, f0.quad)
+    torch.cuda.synchronize()
+    j_d = float(system.cost(prob_d, fwd_d.u_values, f0.quad))
+    check(all(r["converged"] for r in prob_d.solve_log),
+          f"path 10b: the dense ladder did not converge: {prob_d.solve_log}")
+    dj = abs(j_d - j_mg) / abs(j_d)
+    check(dj <= 1e-9, f"path 10b: dense against mg J0 rel {dj}")
+    print(f"path 10b: forced dense ladder (37,507² float64 LU a step) at the "
+          f"initial control: rungs {rung_summary(prob_d.solve_log)}, "
+          f"{time.perf_counter() - t0:.2f} s; J0 {j_d!r} against mg "
+          f"{j_mg!r}, rel {dj!r}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB on {card}",
+          flush=True)
+    del prob_d, fwd_d
+    torch.cuda.empty_cache()
+
+
+def path10c_float32(cfg, u_d, x0, f, lr, res1, card: str) -> None:
+    """10c: path 1's configuration and control with the float32 knobs:
+    ``dense_apply="inverse"``, ``newton_chord_f32`` on float32 LU
+    factors, and both; one GD step each against path 1's (``res1``): J
+    within 1e-9 relative, f_new within 1e-8·max|f_new| (the JAX package's
+    bounds); then the median of 3 steps and the stages."""
+    import torch
+    from ocean_torch import system
+
+    dev = torch.device("cuda")
+    scale = float(res1.f_new.quad.abs().max())
+    for name, tag, kw in (
+            ("dense_apply=inverse", "inverse", dict(dense_apply="inverse")),
+            ("newton_chord_f32", "chord_f32", dict(newton_chord_f32=True)),
+            ("both", "inverse_chord_f32", dict(dense_apply="inverse",
+                                               newton_chord_f32=True))):
+        prob = system.build_problem(dataclasses.replace(cfg, **kw), u_d=u_d,
+                                    x0=x0, device=dev)
+        res, _ = run_path(f"path 10c ({name})", prob, f, lr, PATH1,
+                          f"gd_iteration_seconds_10000_buoys_{tag}", card)
+        dj = abs(float(res.J) - float(res1.J)) / abs(float(res1.J))
+        dq = float((res.f_new.quad - res1.f_new.quad).abs().max()) / scale
+        check(dj < 1e-9 and dq < 1e-8,
+              f"path 10c ({name}): J rel {dj}, f_new {dq} of max|f_new|")
+        print(f"path 10c ({name}): J rel {dj!r} f_new {dq!r} of max|f_new| "
+              f"against path 1, newton_iters {res.fwd.newton.iterations} "
+              f"(path 1: {res1.fwd.newton.iterations}), Stokes factors "
+              f"{type(prob.fac0).__name__} "
+              f"{str(getattr(prob.fac0, 'lu', getattr(prob.fac0, 'ainv', None)).dtype)[6:]}",
+              flush=True)
+        print_stages(f"path 10c ({name})", prob, f, lr)
+        del prob
 
 
 def main() -> int:
@@ -1983,8 +2269,8 @@ def main() -> int:
                     lr)
 
     # --- 6. path 1, the main path -----------------------------------------
-    _, counts1 = run_path("main path", prob, f, lr, PATH1,
-                          "gd_iteration_seconds_10000_buoys", card)
+    res1, counts1 = run_path("main path", prob, f, lr, PATH1,
+                             "gd_iteration_seconds_10000_buoys", card)
     print_stages("path 1", prob, f, lr)
 
     # --- 7. path 2: exact segment-sum point sources, consistent adjoint ---
@@ -2107,7 +2393,12 @@ def main() -> int:
               "and artifacts", flush=True)
         check(prob3.K == 10000 and prob3.newton_reuse_lu
               and prob3.psrc_method == "fused"
-              and prob3.ode_backend == "pallas", "path 3: not the fast paths")
+              and prob3.ode_backend == "pallas"
+              and prob3.projector.mode == "inverse",
+              "path 3: not the fast paths")
+        print("path 3 runs dense_apply=\"inverse\" (the JAX package's "
+              "--fast bundle): its seconds are not comparable with runs of "
+              "the float64 LU applies", flush=True)
         check_run("path 3", res3, prob3, cfg3, counts_p3,
                   "gd_iteration_seconds_10000_buoys_armijo", card)
         # the JAX package's record of this run on a TPU (double-single
@@ -2193,6 +2484,13 @@ def main() -> int:
 
     # --- 18. path 9: the high-resolution multigrid path ----------------------
     domain_records += path9_hires(card)
+
+    # --- 19. path 10: the golden viscosity and the float32 knobs --------------
+    with tempfile.TemporaryDirectory() as tmp:
+        golden_records, counts_p10a = path10a_golden(tmp, card)
+    domain_records += golden_records
+    path10b_hires(card)
+    path10c_float32(cfg, u_d, x0, f, lr, res1, card)
 
     launches = {n: counts1[n] for n in PATH1}
     launches.update({n: counts2[n] for n in PATH2 if n not in PATH1})

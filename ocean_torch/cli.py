@@ -8,12 +8,12 @@ and default, plus ``--device``.
     python -m ocean_torch.pipelines.limits --ud-experiment 10000_buoys --fast
     python -m ocean_torch.pipelines.limits --device cpu --linear-solver mg \\
         --ud-experiment 100_buoys --unit-square-resolution 8 --num-steps 2
+    python -m ocean_torch.pipelines.ocp --ud-experiment 10_buoys \\
+        --viscosity 0.01 --newton-continuation 6 --fast
 
-A flag that selects a branch the port does not have yet (viscosity
-continuation, float32 chord sweeps) is accepted and makes the run raise
-``NotImplementedError`` by name (``system.build_problem``).
-``--dense-apply`` selects a TPU workaround and is accepted and ignored:
-the port factors in float64.
+``--fast`` is the JAX package's bundle: the chord Newton on the Stokes
+factor, the CUDA point-source and ODE kernels, and the explicit float32
+inverse of the dense applies (``dense_apply="inverse"``).
 """
 
 from __future__ import annotations
@@ -50,13 +50,14 @@ def build_parser(prog: str, defaults: OCPConfig) -> argparse.ArgumentParser:
     p.add_argument("--lr-max", type=float, default=defaults.LR_MAX)
     p.add_argument("--conv-crit", type=float, default=defaults.conv_crit)
     p.add_argument("--load-q", default="",
-                   help="warm-start control checkpoint (.npz)")
+                   help="warm-start control checkpoint (.npz, or a dolfin "
+                        ".h5 on this mesh)")
     p.add_argument("--checkpoints", action="store_true",
                    default=defaults.checkpoints)
     p.add_argument("--fast", action="store_true",
                    help="enable the fast paths (chord Newton on the Stokes "
                         "factor, the CUDA point-source kernel, the CUDA ODE "
-                        "kernels)")
+                        "kernels, dense_apply=inverse)")
     p.add_argument("--ode-backend", default=None,
                    choices=["gather", "grid", "pallas"],
                    help="primal/adjoint buoy-ODE backend (overrides the "
@@ -68,7 +69,9 @@ def build_parser(prog: str, defaults: OCPConfig) -> argparse.ArgumentParser:
                    help="point-source reduction (overrides --fast bundle)")
     p.add_argument("--dense-apply", default=None,
                    choices=["lu", "inverse"],
-                   help="accepted and ignored (a TPU workaround)")
+                   help="dense applies: lu = float64 LU factors, inverse = "
+                        "explicit float32 inverse refined in float64 "
+                        "(overrides the --fast bundle)")
     p.add_argument("--projector-solver", default=defaults.projector_solver,
                    choices=["auto", "dense", "cg"],
                    help="∇u-projection mass solves")
@@ -90,11 +93,12 @@ def build_parser(prog: str, defaults: OCPConfig) -> argparse.ArgumentParser:
                         "inverse (mg path; 0 = 20,000)")
     p.add_argument("--newton-continuation", type=int,
                    default=defaults.newton_continuation,
-                   help="viscosity-continuation rungs (not ported: any "
-                        "value but 0 raises)")
+                   help="viscosity-continuation rungs of the NS solve "
+                        "below ν=1 (0 = Newton from w=0; 6 for ν=0.01)")
     p.add_argument("--newton-chord-f32", action="store_true",
                    default=defaults.newton_chord_f32,
-                   help="float32 chord sweeps (not ported: raises)")
+                   help="run the chord Newton's correction sweeps in "
+                        "float32 (with --fast)")
     return p
 
 

@@ -6,10 +6,9 @@ Same keys, defaults and quirks as the JAX ``OCPConfig``:
 * the Tikhonov weight is rescaled by buoy count (``alpha_scaled``),
 * the number of ODE time steps is ``int(T / dt)``.
 
-Knobs that only select TPU workarounds (``dense_apply``) are accepted
-and ignored by the port; knobs that select branches the port does not
-have yet (``newton_continuation``, ``newton_chord_f32``) make
-``system.build_problem`` raise ``NotImplementedError``.
+Every knob selects what it selects in the JAX package, the float32
+dense applies (``dense_apply="inverse"``, ``newton_chord_f32``) and the
+viscosity continuation (``newton_continuation``) included.
 """
 
 from __future__ import annotations

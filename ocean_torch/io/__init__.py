@@ -1,7 +1,7 @@
-"""Run artifacts, checkpoints and ParaView export (the figure set of
-``ocean_jax/io/plots.py`` and the dolfin HDF5 reader are not ported
-yet)."""
+"""Run artifacts, checkpoints, ParaView export, the figure set
+(``plots``, matplotlib imported when a figure is drawn) and the dolfin
+HDF5 reader (``dolfin_h5``, h5py imported when a file is read)."""
 
-from . import artifacts, checkpoint, xdmf
+from . import artifacts, checkpoint, dolfin_h5, plots, xdmf
 
-__all__ = ["artifacts", "checkpoint", "xdmf"]
+__all__ = ["artifacts", "checkpoint", "dolfin_h5", "plots", "xdmf"]

@@ -11,8 +11,9 @@ checkpoint written by either package loads in the other:
   3. final field checkpoints for reruns: ``paraview/checkpoint/up.npz``.
 
 The checkpoint also stores the running learning rate and iteration index,
-so a resumed run can continue the LR schedule. Warm starts from a legacy
-dolfin HDF5 checkpoint (``load_dolfin_control``) wait for the HDF5 reader.
+so a resumed run can continue the LR schedule. A legacy dolfin HDF5
+checkpoint (``q_backup/q.h5``) warm-starts through
+``load_dolfin_control``, which needs the mesh (and h5py).
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from .. import control as ctrl_mod
 from .. import convert
 from ..control import Control
 from ..fem.spaces import TaylorHoodSpace, BoundaryQuad
@@ -71,11 +73,12 @@ def load_control_history(path: str):
 def load_control(path: str, space: TaylorHoodSpace, bq: BoundaryQuad
                  ) -> Tuple[Control, Optional[float], Optional[int]]:
     """Load a control checkpoint onto the space's device: (control, lr or
-    None, iteration or None)."""
+    None, iteration or None). A dolfin checkpoint needs the mesh: it
+    raises ``ValueError`` naming ``load_dolfin_control``, as in the JAX
+    package."""
     if path.endswith((".h5", ".xdmf")):
-        raise NotImplementedError(
-            "ocean_torch: dolfin checkpoints (load_dolfin_control) are not "
-            "ported yet")
+        raise ValueError(
+            "dolfin checkpoints need the mesh; use load_dolfin_control")
     ctrl, lr, it = convert.control_checkpoint(path, space.device)
     if (ctrl.quad.shape != bq.points.shape
             or ctrl.p2.shape != (space.n_p2, 2)):
@@ -84,6 +87,16 @@ def load_control(path: str, space: TaylorHoodSpace, bq: BoundaryQuad
             f"{tuple(ctrl.p2.shape)}; this problem needs "
             f"{tuple(bq.points.shape)}, {(space.n_p2, 2)}")
     return ctrl, lr, it
+
+
+def load_dolfin_control(path: str, mesh, space: TaylorHoodSpace,
+                        bq: BoundaryQuad, name: str = "f") -> Control:
+    """Warm-start from a legacy-dolfin ``q_backup/q.h5`` control
+    checkpoint on this mesh (``dolfin_h5.read_checkpoint_velocity``)."""
+    from .dolfin_h5 import read_checkpoint_velocity
+    q = read_checkpoint_velocity(path, mesh, space, name)
+    return ctrl_mod.from_p2(space, bq, torch.as_tensor(
+        q, dtype=torch.float64, device=space.device))
 
 
 def save_fields(path: str, w, space: TaylorHoodSpace) -> None:

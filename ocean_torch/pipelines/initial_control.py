@@ -12,10 +12,10 @@ with the line search off by default. ``run_all_cases`` runs the cases
 one after another with their artifacts; ``run_all_cases_fused`` runs the
 four as one ensemble (``opt.ensemble``) with member-wise exits.
 
-The final ‖u − ū‖_{L²/H¹} table against the stored reference flow needs
-the dolfin HDF5 reader, which is not ported yet: ``run`` raises
-``NotImplementedError`` where that file is present and, as the JAX
-package does, skips the comparison where it is absent.
+At the end ``run`` writes the ‖u − ū‖_{L²/H¹} table against the stored
+reference flow (a dolfin HDF5 file under ``reference_runs_dir``) to
+``norm_table.txt``, as the JAX package does; it skips the comparison
+where the file is absent or holds another resolution.
 
     python -m ocean_torch.pipelines.initial_control --device cpu --case 2
 """
@@ -40,7 +40,6 @@ def run(cfg: OCPConfig, case: int = 0, write_artifacts: bool = True,
     """One case through the driver on ``device``: (GDRunResult, problem,
     norm table or None)."""
     cfg = dataclasses.replace(cfg, L_shape=False)
-    ocp_pipeline._refuse_ubar(cfg)
     prob = sys_mod.build_problem(cfg, device=device)
     mesh = ocp_pipeline._mesh(cfg)
     run_dir = (artifacts.RunDirectory(cfg.out_dir)
@@ -50,9 +49,13 @@ def run(cfg: OCPConfig, case: int = 0, write_artifacts: bool = True,
         cfg, prob, f,
         grad_check_dir=(cfg.out_dir if write_artifacts else None),
         reuse_ls_forward=cfg.reuse_ls_forward, verbose=verbose)
+    norm_table = ocp_pipeline.ubar_norm_table(cfg, prob, mesh, result,
+                                              run_dir, verbose)
     if write_artifacts:
-        ocp_pipeline._write_final_artifacts(cfg, prob, mesh, result, run_dir)
-    return result, prob, None
+        ocp_pipeline._write_final_artifacts(
+            cfg, prob, mesh, result, run_dir,
+            ocp_pipeline._figures(write_artifacts))
+    return result, prob, norm_table
 
 
 def run_all_cases(cfg: OCPConfig, verbose: bool = False, device="cuda"):

@@ -5,16 +5,16 @@ Differences from the flagship OCP pipeline, as in the reference:
   * line search off by default,
   * square mesh only,
   * buoy-escape exit threshold is 10 buoys, not K/2,
-  * final ‖u − ū‖ comparison against a stored velocity checkpoint, written
-    to ``norm_table.txt``: not ported yet (it needs the dolfin HDF5
-    reader); ``run`` raises ``NotImplementedError`` where that checkpoint
-    is present and skips the comparison, as the JAX package does, where it
-    is absent.
+  * final ‖u − ū‖_{L²/H¹} comparison against the stored chapter-6.3.3
+    velocity checkpoint (a dolfin HDF5 file under ``reference_runs_dir``),
+    written to ``norm_table.txt``; skipped where the file is absent or
+    holds another resolution.
 
 The reference ships no measurements for the 10⁴-buoy case, so they are
 synthesized with ``pipelines.ud_construction`` and cached (``ensure_ud``).
 The port keeps its own cache (``data/ud_torch/`` by default) and never
-reads the JAX package's. As ``ocp.run``, ``run`` writes no figures yet.
+reads the JAX package's. As ``ocp.run``, ``run`` writes the figures where
+matplotlib is installed.
 
     python -m ocean_torch.pipelines.limits --ud-experiment 10000_buoys --fast
 """
@@ -63,12 +63,11 @@ def run(cfg: OCPConfig, write_artifacts: bool = True, verbose: bool = True,
 
     ``fast_paths=True`` (default) turns on the chord Newton on the Stokes
     factor (``newton_reuse_lu``), the CUDA point-source kernel
-    (``psrc_method="fused"``) and the CUDA ODE kernels
-    (``ode_backend="pallas"``), each only where the config still holds
-    the plain default; the driver re-solves a diverged chord Newton with
-    fresh factorizations. The JAX package's fourth fast path, the
-    explicit float32 inverse (``dense_apply``), has no counterpart: the
-    port factors in float64."""
+    (``psrc_method="fused"``), the CUDA ODE kernels
+    (``ode_backend="pallas"``) and the explicit float32 inverse of the
+    dense applies (``dense_apply="inverse"``), each only where the config
+    still holds the plain default, as in the JAX package; the driver
+    re-solves a diverged chord Newton with fresh factorizations."""
     cfg = dataclasses.replace(cfg, L_shape=False)
     if fast_paths:
         cfg = dataclasses.replace(
@@ -77,25 +76,31 @@ def run(cfg: OCPConfig, write_artifacts: bool = True, verbose: bool = True,
             psrc_method=("fused" if cfg.psrc_method == "scatter"
                          else cfg.psrc_method),
             ode_backend=("pallas" if cfg.ode_backend == "gather"
-                         else cfg.ode_backend))
-    ocp_pipeline._refuse_ubar(cfg)
+                         else cfg.ode_backend),
+            dense_apply=("inverse" if cfg.dense_apply == "lu"
+                         else cfg.dense_apply))
     u_d, x0 = ensure_ud(cfg, cache_dir=ud_cache_dir, device=device)
     prob = sys_mod.build_problem(cfg, u_d=u_d, x0=x0, device=device)
     mesh = ocp_pipeline._mesh(cfg)
     run_dir = (artifacts.RunDirectory(cfg.out_dir)
                if write_artifacts else None)
+    figures = ocp_pipeline._figures(write_artifacts)
 
     f = sys_mod.initial_control(prob, case=4)   # constant (0.1, 0.0)
     result = run_gradient_descent(
         cfg, prob, f, escape_threshold=10,
-        on_iteration=ocp_pipeline._checkpoint_writer(run_dir),
+        on_iteration=ocp_pipeline._iteration_writer(run_dir, prob, mesh,
+                                                    figures),
         reuse_ls_forward=cfg.reuse_ls_forward,
         grad_check_dir=(cfg.out_dir if write_artifacts else None),
         verbose=verbose)
 
+    norm_table = ocp_pipeline.ubar_norm_table(cfg, prob, mesh, result,
+                                              run_dir, verbose)
     if write_artifacts:
-        ocp_pipeline._write_final_artifacts(cfg, prob, mesh, result, run_dir)
-    return result, prob, None
+        ocp_pipeline._write_final_artifacts(cfg, prob, mesh, result, run_dir,
+                                            figures)
+    return result, prob, norm_table
 
 
 if __name__ == "__main__":

@@ -19,12 +19,14 @@ def solve_operator(op: Operator, b: torch.Tensor, bc_vals: torch.Tensor,
 
 
 def solve_operator_reuse_t(op: Operator, b: torch.Tensor,
-                           bc_vals: torch.Tensor, fac: linalg.LUSolver,
+                           bc_vals: torch.Tensor, fac,
                            tol: float = 1e-12, max_iters: int = 30,
                            refine_iters: int = 12
                            ) -> Tuple[torch.Tensor, bool]:
     """Solve op x = b without a new factorization, preconditioned by the
-    TRANSPOSED factors of a nearby primal operator.
+    TRANSPOSED factors of a nearby primal operator: ``fac`` is an
+    ``linalg.LUSolver`` (float64 or float32 factors, transposed through
+    ``lu_solve``) or an ``linalg.InvSolver`` (its materialized A⁻ᵀ).
 
     For ν=1 the reference's adjoint form is exactly the transpose of the
     primal NS Jacobian, so the Newton solve's factors, applied transposed,

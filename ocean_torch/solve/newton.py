@@ -22,9 +22,10 @@ class NewtonResult(NamedTuple):
     iterations: int
     residual_norm: float
     converged: bool
-    # LU factors of the last Jacobian the solver factorized (J(w0) under
-    # reuse_factorization); the adjoint solve reuses them transposed
-    fac: Optional[linalg.LUSolver] = None
+    # factors (an LUSolver or InvSolver) of the last Jacobian the solver
+    # factorized (J(w0) under reuse_factorization); the adjoint solve
+    # reuses them transposed
+    fac: Optional[object] = None
     # FGMRES restart cycles of each step (the multigrid Newton,
     # solve/mg.py::newton_solve_mg); empty for the dense Newton
     krylov_cycles: tuple = ()
@@ -40,7 +41,10 @@ def newton_solve(residual_fn: Callable[[torch.Tensor], torch.Tensor],
                  max_iter: int = 50,
                  reuse_factorization: bool = False,
                  correction_iters: int = 1,
-                 fac0: Optional[linalg.LUSolver] = None) -> NewtonResult:
+                 fac0=None,
+                 residual_fn32: Optional[Callable[[torch.Tensor],
+                                                  torch.Tensor]] = None
+                 ) -> NewtonResult:
     """Solve residual(w) = 0 with BC-aware Newton.
 
     residual_fn: raw float64 residual (no BC rows); operator_fn: w →
@@ -54,6 +58,17 @@ def newton_solve(residual_fn: Callable[[torch.Tensor], torch.Tensor],
     taken as the forward-mode tangent of the BC-aware residual
     (``torch.func.jvp``; the assembled operator is jacfwd of the same
     element residuals, so it is the same linear map).
+
+    ``fac0``: an ``linalg.LUSolver`` or ``linalg.InvSolver`` of J(w0).
+    Without reuse each later step refactors in ``fac0``'s kind
+    (``refactor``): float64 LU factors by default.
+
+    ``residual_fn32``: the float32 twin of ``residual_fn`` (the same form
+    on float32 tables). Given it and ``reuse_factorization``, the
+    correction sweeps (tangent, applies) run in float32 through
+    ``fac0.solve32_raw``; the float64 residual stays the only convergence
+    test, so the accepted state differs only below the 1e-9·‖r0‖
+    threshold.
     """
     is_bc = torch.zeros(w0.shape[0], dtype=torch.bool, device=w0.device)
     is_bc[bc_dofs] = True
@@ -62,6 +77,12 @@ def newton_solve(residual_fn: Callable[[torch.Tensor], torch.Tensor],
     def bc_residual(w):
         return torch.where(is_bc, w - g_full, residual_fn(w))
 
+    if residual_fn32 is not None:
+        g_full32 = g_full.to(torch.float32)
+
+        def bc_residual32(w32):
+            return torch.where(is_bc, w32 - g_full32, residual_fn32(w32))
+
     r = bc_residual(w0)
     r0norm = float(torch.linalg.norm(r))
     if fac0 is None:
@@ -69,14 +90,21 @@ def newton_solve(residual_fn: Callable[[torch.Tensor], torch.Tensor],
 
     w, rnorm, it, fac = w0, r0norm, 0, fac0
     while rnorm > atol and rnorm > rtol * r0norm and it < max_iter:
-        if reuse_factorization:
+        if reuse_factorization and residual_fn32 is not None:
+            w32, r32 = w.to(torch.float32), r.to(torch.float32)
+            dw32 = fac0.solve32_raw(-r32)
+            for _ in range(correction_iters):
+                _, jdw = jvp(bc_residual32, (w32,), (dw32,))
+                dw32 = dw32 + fac0.solve32_raw(-(r32 + jdw))
+            dw = dw32.to(torch.float64)
+        elif reuse_factorization:
             dw = fac0.solve(-r)
             for _ in range(correction_iters):
                 _, jdw = jvp(bc_residual, (w,), (dw,))
                 dw = dw + fac0.solve(-(r + jdw))
         else:
             if it > 0:
-                fac = linalg.factorize(operator_fn(w).dense())
+                fac = fac.refactor(operator_fn(w).dense())
             dw = fac.solve(-r)
         w = w + dw
         r = bc_residual(w)

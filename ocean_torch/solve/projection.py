@@ -6,7 +6,10 @@ Two regimes:
 * **dense** (below ``DENSE_P1_CAP`` P1 dofs): the P1 mass matrix is
   constant, so it is assembled and factorized once per problem, and every
   projection is one block solve of its four component right-hand sides
-  through the float64 factors.
+  through the float64 factors (``dense_apply="lu"``), or, with
+  ``dense_apply="inverse"``, through its explicit float32 inverse with 8
+  float64 refinement sweeps against the mass matrix, as in the JAX
+  package.
 * **cg** (above the cap, where the dense matrix would take gigabytes):
   the mass matrix is never formed. The P1 element mass is detJ·M_ref, so
   the matvec is one (ncell, 3)·(3, 3) contraction and a gather-sum; the
@@ -75,22 +78,32 @@ def _pcg(space: TaylorHoodSpace, minv: torch.Tensor, b: torch.Tensor,
     return x
 
 
+# float64 refinement sweeps of the "inverse" apply (the JAX package's)
+INVERSE_REFINE_ITERS = 8
+
+
 @dataclasses.dataclass(frozen=True)
 class GradProjector:
-    fac: Optional[linalg.LUSolver]          # of the dense P1 mass matrix
+    # LU factors or explicit float32 inverse of the dense P1 mass matrix
+    fac: Optional[object]
     lumped_inv: Optional[torch.Tensor]      # (n_p1, 1) Jacobi diagonal
-    mode: str = "lu"                        # "lu" | "cg"
+    mode: str = "lu"                        # "lu" | "inverse" | "cg"
+    mass: Optional[torch.Tensor] = None     # dense float64 ("inverse")
 
     @classmethod
-    def build(cls, space: TaylorHoodSpace,
+    def build(cls, space: TaylorHoodSpace, dense_apply: str = "lu",
               solver: str = "auto") -> "GradProjector":
         """solver: "auto" picks dense up to ``DENSE_P1_CAP`` P1 dofs and cg
-        above; "dense" / "cg" force a regime."""
+        above; "dense" / "cg" force a regime. ``dense_apply`` picks the
+        dense apply: "lu" (float64 factors) or "inverse"."""
         use_cg = (solver == "cg"
                   or (solver == "auto" and space.n_p1 > DENSE_P1_CAP))
         if use_cg:
             return cls(None, _lumped_inverse(space), mode="cg")
-        return cls(linalg.factorize(assemble.p1_mass_matrix(space)), None)
+        mass = assemble.p1_mass_matrix(space)
+        if dense_apply == "inverse":
+            return cls(linalg.invert32(mass), None, "inverse", mass)
+        return cls(linalg.factorize(mass), None)
 
     def project(self, space: TaylorHoodSpace, u: torch.Tensor
                 ) -> torch.Tensor:
@@ -98,6 +111,9 @@ class GradProjector:
         b = assemble.gradu_projection_rhs(space, u).reshape(space.n_p1, 4)
         if self.mode == "cg":
             sol = _pcg(space, self.lumped_inv, b, CG_ITERS)
+        elif self.mode == "inverse":
+            sol = linalg.solve_refined(self.fac, lambda x: self.mass @ x, b,
+                                       INVERSE_REFINE_ITERS)
         else:
             sol = self.fac.solve(b)
         return sol.reshape(space.n_p1, 2, 2)

@@ -4,8 +4,11 @@ dense and the multigrid linear solvers, reference and consistent adjoint
 modes, on the [0,2]² square and the L-shape, either diagonal).
 
     build_problem      the problem: mesh, space, the dense Stokes factor
-                       or the multigrid hierarchy (build_mg_hierarchy)
-    _solve_ns          primal Navier–Stokes Newton solve (dense or mg)
+                       (float64 LU, float32 LU or explicit float32
+                       inverse) or the multigrid hierarchy
+                       (build_mg_hierarchy)
+    _solve_ns          primal Navier–Stokes Newton solve (dense or mg),
+                       behind a viscosity-continuation ladder below ν = 1
     _forward           NS + primal buoy ODE
     cost               J(u_values, f)
     adjoint_rhs        ∇u projection + adjoint ODE + point sources
@@ -19,11 +22,9 @@ modes, on the [0,2]² square and the L-shape, either diagonal).
                        VJP, for autograd through the whole forward map
 
 PyTorch runs eagerly, so host loops and Python ``if`` on ``.item()``
-values replace ``lax.while_loop``/``lax.scan``/``lax.cond``. Branches the
-port does not have yet (viscosity continuation, float32 chord sweeps)
-raise ``NotImplementedError``. The pipe meshes have no problem constructor
-here, as in the JAX package: they reach the mesh, ODE and point-source
-functions directly.
+values replace ``lax.while_loop``/``lax.scan``/``lax.cond``. The pipe
+meshes have no problem constructor here, as in the JAX package: they
+reach the mesh, ODE and point-source functions directly.
 """
 
 from __future__ import annotations
@@ -89,6 +90,10 @@ class OCPProblem:
     refine_iters: int = 6
     newton_reuse_lu: bool = False    # chord Newton on the Stokes factor
     newton_correction_iters: int = 1
+    # the chord's correction sweeps in float32 (with newton_reuse_lu)
+    newton_chord_f32: bool = False
+    # ν-continuation rungs before the Newton solve at ν < 1 (0: none)
+    newton_continuation: int = 0
     # "scatter" | "binned" | "sorted" | "ozaki" | "ozaki_pallas" (the
     # segment-sum kernel) | "fused" (the point-source kernel)
     psrc_method: str = "scatter"
@@ -97,10 +102,12 @@ class OCPProblem:
     grid: Optional[GridEval] = None  # half-grid tables of the kernels
     adjoint_reuse_lu: bool = False   # adjoint through the transposed fac0
     adjoint_mode: str = "reference"  # "reference" | "consistent"
-    # float64 LU factors of the Stokes (w=0) Jacobian: the first matrix
-    # every Newton solve factorizes is control-independent, so it is
-    # factorized once per problem (dense solver only)
-    fac0: Optional[linalg.LUSolver] = None
+    # factors of the Stokes (w=0) Jacobian: the first matrix every Newton
+    # solve factorizes is control-independent, so it is factorized once
+    # per problem (dense solver only). A float64 linalg.LUSolver; float32
+    # factors for the float32 chord; a linalg.InvSolver with
+    # dense_apply="inverse"
+    fac0: Optional[object] = None
     # the multigrid Krylov path (solve/mg.py) past the dense sizes
     linear_solver: str = "dense"     # "dense" | "mg"
     mg: Optional[MGContext] = None   # the hierarchy (mg solver only)
@@ -189,20 +196,20 @@ def resolve_adjoint_reuse(mode: str, nu: float, linear_solver: str) -> bool:
 
 
 def _check_supported(cfg: OCPConfig) -> None:
-    unsupported = {
+    """Refuse a knob value that names no branch of the JAX package."""
+    choices = {
         "adjoint_mode": (cfg.adjoint_mode, ("reference", "consistent")),
         "ode_backend": (cfg.ode_backend, ("gather", "grid", "pallas")),
         "psrc_method": (cfg.psrc_method, ("scatter", "binned", "sorted",
                                           "ozaki", "ozaki_pallas", "fused")),
         "linear_solver": (cfg.linear_solver, ("auto", "dense", "mg")),
         "mg_matvec": (cfg.mg_matvec, ("stencil", "scatter")),
-        "newton_chord_f32": (cfg.newton_chord_f32, (False,)),
+        "dense_apply": (cfg.dense_apply, ("lu", "inverse")),
     }
-    for key, (val, ok) in unsupported.items():
+    for key, (val, ok) in choices.items():
         if val not in ok:
-            raise NotImplementedError(
-                f"ocean_torch: {key}={val!r} is not ported yet "
-                f"(supported: {ok})")
+            raise ValueError(f"ocean_torch: {key}={val!r}, expected one "
+                             f"of {ok}")
 
 
 def _as_f64(a, device) -> torch.Tensor:
@@ -292,6 +299,24 @@ def build_mg_hierarchy(cfg: OCPConfig, space_f: TaylorHoodSpace,
     return sub
 
 
+def _stokes_factors(cfg: OCPConfig, space: TaylorHoodSpace,
+                    bq: BoundaryQuad, bc_dofs: torch.Tensor):
+    """The problem-constant factors of the Stokes (w = 0) Jacobian:
+    ``dense_apply="inverse"`` its explicit float32 inverse with A⁻ᵀ
+    materialized for the transposed adjoint applies (as the JAX package
+    builds it); else LU factors, float32 where the float32 chord sweeps
+    run on them (``newton_chord_f32`` with ``newton_reuse_lu``: the JAX
+    package's factors are float32 in every mode), float64 otherwise."""
+    a = assemble.ns_operator(
+        space, bq, torch.zeros(space.ndof, dtype=torch.float64,
+                               device=space.device),
+        cfg.viscosity, bc_dofs).dense()
+    if cfg.dense_apply == "inverse":
+        return linalg.invert32(a).with_transpose()
+    f32 = cfg.newton_chord_f32 and cfg.newton_reuse_lu
+    return linalg.factorize(a, torch.float32 if f32 else torch.float64)
+
+
 def build_problem(cfg: OCPConfig, u_d=None, x0=None,
                   device="cuda") -> OCPProblem:
     """Build the problem on ``device`` from a config. Unless given, u_d/x0
@@ -317,11 +342,6 @@ def build_problem(cfg: OCPConfig, u_d=None, x0=None,
     if linear_solver == "auto":
         linear_solver = ("mg" if space.ndof > AUTO_MG_DOF_THRESHOLD
                          else "dense")
-    if cfg.newton_continuation != 0:
-        raise NotImplementedError(
-            f"ocean_torch: newton_continuation={cfg.newton_continuation!r} "
-            "is not ported yet, on either linear solver (this problem's "
-            f"linear_solver is {linear_solver!r}; supported: (0,))")
     mg_ctx = fac0 = None
     if linear_solver == "mg":
         n_fine = (cfg.L_shape_resolution if cfg.L_shape
@@ -331,12 +351,10 @@ def build_problem(cfg: OCPConfig, u_d=None, x0=None,
                                     seconds=seconds)
         t = time.perf_counter()
     else:
-        fac0 = linalg.factorize(assemble.ns_operator(
-            space, bq, torch.zeros(space.ndof, dtype=torch.float64,
-                                   device=dev),
-            cfg.viscosity, bc_dofs).dense())
+        fac0 = _stokes_factors(cfg, space, bq, bc_dofs)
         t = _lap(seconds, "fac0", t, dev)
-    projector = GradProjector.build(space, solver=cfg.projector_solver)
+    projector = GradProjector.build(space, dense_apply=cfg.dense_apply,
+                                    solver=cfg.projector_solver)
     t = _lap(seconds, "projector", t, dev)
     grid = (make_grideval(space)
             if cfg.ode_backend != "gather" or cfg.psrc_method == "fused"
@@ -362,6 +380,8 @@ def build_problem(cfg: OCPConfig, u_d=None, x0=None,
         refine_iters=cfg.refine_iters,
         newton_reuse_lu=cfg.newton_reuse_lu,
         newton_correction_iters=cfg.newton_correction_iters,
+        newton_chord_f32=cfg.newton_chord_f32,
+        newton_continuation=cfg.newton_continuation,
         psrc_method=cfg.psrc_method,
         ode_backend=cfg.ode_backend,
         grid=grid,
@@ -431,40 +451,100 @@ def _log_solve(prob: OCPProblem, **record) -> None:
         prob.solve_log.append(record)
 
 
+def continuation_viscosities(nu: float, n_rungs: int) -> list:
+    """The ν-ladder below the solve at ν: ν_k = r^k for k = 0..n_rungs
+    with r = ν^(1/(n_rungs+1)), from 1 down to ν/r. Empty when ν ≥ 1 or
+    ``n_rungs`` is 0."""
+    if n_rungs <= 0 or nu >= 1.0:
+        return []
+    ratio = (nu / 1.0) ** (1.0 / (n_rungs + 1))
+    return [ratio ** k for k in range(n_rungs + 1)]
+
+
+def _float32_tables(tables):
+    """A copy of a space or a quadrature with its floating tables cast to
+    float32 (index tables and the locator as they are)."""
+    return dataclasses.replace(tables, **{
+        f.name: getattr(tables, f.name).to(torch.float32)
+        for f in dataclasses.fields(tables)
+        if torch.is_tensor(getattr(tables, f.name))
+        and getattr(tables, f.name).is_floating_point()})
+
+
 def _solve_ns(prob: OCPProblem, f_quad: torch.Tensor) -> NewtonResult:
     """Primal NS Newton solve from w = 0: dense steps (chord on the
-    Stokes factor with ``newton_reuse_lu``), or on the multigrid path
-    float32 FGMRES steps preconditioned by the hierarchy frozen at w = 0
-    (``solve/mg.py::newton_solve_mg``)."""
-    def residual(w):
-        return assemble.ns_residual(prob.space, prob.bq, w, f_quad, prob.nu)
+    Stokes factor with ``newton_reuse_lu``, its sweeps in float32 with
+    ``newton_chord_f32``), or on the multigrid path float32 FGMRES steps
+    preconditioned by the hierarchy frozen at w = 0
+    (``solve/mg.py::newton_solve_mg``).
 
-    def operator(w):
-        return assemble.ns_operator(prob.space, prob.bq, w, prob.nu,
-                                    prob.bc_dofs)
+    With ``newton_continuation`` > 0 and ν < 1, Newton from w = 0 runs
+    first at each viscosity of ``continuation_viscosities``, each rung
+    warm-starting the next, and the solve at ν starts from the last
+    rung's state: at the reference's ν = 0.01 Newton from w = 0 diverges.
+    Dense rungs and the dense final solve are full Newton (the Stokes
+    factor belongs to w = 0); multigrid rungs run on the hierarchy frozen
+    at ν with ``nu_scale`` = ν_k/ν. Each rung appends an "ns_rung" record
+    to ``solve_log``. Only the final solve's float64 test decides the
+    accuracy of the result."""
+    def residual_at(nu):
+        return lambda w: assemble.ns_residual(prob.space, prob.bq, w,
+                                              f_quad, nu)
 
-    w0 = torch.zeros(prob.space.ndof, dtype=torch.float64,
-                     device=prob.device)
+    def operator_at(nu):
+        return lambda w: assemble.ns_operator(prob.space, prob.bq, w, nu,
+                                              prob.bc_dofs)
+
+    w = torch.zeros(prob.space.ndof, dtype=torch.float64,
+                    device=prob.device)
+    ladder = continuation_viscosities(prob.nu, prob.newton_continuation)
     if prob.linear_solver == "mg":
-        coarse_operator = None
-        if prob.mg_coarse_krylov > 0:
+        def coarse_at(nu):
             # the state-assembled coarse operator of the convection-aware
             # inner Krylov (solve/mg.py::make_block_preconditioner)
-            def coarse_operator(w):
-                return assemble.ns_operator(
-                    prob.mg.space_c, prob.mg.bq_c,
-                    mg_mod.inject_state(prob.mg, prob.space, w), prob.nu,
-                    prob.mg.bc_dofs_c)
-        res = mg_mod.newton_solve_mg(
-            residual, operator, coarse_operator, prob.mg, prob.space, w0,
-            prob.bc_dofs, prob.bc_vals, pre=prob.mg_pre, post=prob.mg_post,
-            coarse_krylov=prob.mg_coarse_krylov)
+            if prob.mg_coarse_krylov == 0:
+                return None
+            return lambda w: assemble.ns_operator(
+                prob.mg.space_c, prob.mg.bq_c,
+                mg_mod.inject_state(prob.mg, prob.space, w), nu,
+                prob.mg.bc_dofs_c)
+
+        def solve(nu, w0):
+            return mg_mod.newton_solve_mg(
+                residual_at(nu), operator_at(nu), coarse_at(nu), prob.mg,
+                prob.space, w0, prob.bc_dofs, prob.bc_vals,
+                pre=prob.mg_pre, post=prob.mg_post, nu_scale=nu / prob.nu,
+                coarse_krylov=prob.mg_coarse_krylov)
     else:
-        res = newton_solve(residual, operator, w0, prob.bc_dofs,
-                           prob.bc_vals,
+        def solve(nu, w0):
+            return newton_solve(residual_at(nu), operator_at(nu), w0,
+                                prob.bc_dofs, prob.bc_vals)
+
+    for nu_k in ladder:
+        res = solve(nu_k, w)
+        _log_solve(prob, solve="ns_rung", nu=nu_k,
+                   iterations=res.iterations,
+                   residual_norm=res.residual_norm, converged=res.converged,
+                   krylov_cycles=list(res.krylov_cycles))
+        w = res.w
+
+    if ladder or prob.linear_solver == "mg":
+        res = solve(prob.nu, w)
+    else:
+        residual32 = None
+        if prob.newton_chord_f32 and prob.newton_reuse_lu:
+            space32 = _float32_tables(prob.space)
+            bq32 = _float32_tables(prob.bq)
+            f_quad32 = f_quad.to(torch.float32)
+
+            def residual32(w32):
+                return assemble.ns_residual(space32, bq32, w32, f_quad32,
+                                            prob.nu)
+        res = newton_solve(residual_at(prob.nu), operator_at(prob.nu), w,
+                           prob.bc_dofs, prob.bc_vals,
                            reuse_factorization=prob.newton_reuse_lu,
                            correction_iters=prob.newton_correction_iters,
-                           fac0=prob.fac0)
+                           fac0=prob.fac0, residual_fn32=residual32)
     _log_solve(prob, solve="ns_newton", iterations=res.iterations,
                residual_norm=res.residual_norm, converged=res.converged,
                krylov_cycles=list(res.krylov_cycles))
@@ -641,9 +721,13 @@ def solve_adjoint_system(prob: OCPProblem, fwd: ForwardState,
                    converged=sol.converged)
         return sol.x, sol.converged
     if prob.adjoint_reuse_lu and fwd.newton.fac is not None:
-        z, _ = solve_operator_reuse_t(op, b, prob.bc_vals, fwd.newton.fac,
-                                      refine_iters=prob.refine_iters)
+        z, swept = solve_operator_reuse_t(op, b, prob.bc_vals,
+                                          fwd.newton.fac,
+                                          refine_iters=prob.refine_iters)
+        _log_solve(prob, solve="adjoint", converged=True,
+                   transposed_factor_sweeps_converged=swept)
         return z, True
+    _log_solve(prob, solve="adjoint", converged=True)
     return solve_operator(op, b, prob.bc_vals,
                           refine_iters=prob.refine_iters), True
 

@@ -26,6 +26,8 @@ there NaN equals NaN, ``torch_kernel_cases.same``), and the plain
 location on the card is the CPU's there too.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -627,3 +629,42 @@ def test_hires_sizes_and_stencil_matvec_on_card(dev):
         for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-4)):
             y = stencil.matvec_of(prob.mg.st_mixed, dtype)(op)(x)
             assert _rel(y.double(), ref) < tol
+
+
+def test_continuation_ladder_on_card(dev):
+    """The dense ν-ladder at the golden viscosity ν = 0.01 (Nx = 8, 10
+    buoys, 6 rungs) on the card against the CPU: Newton iterations within
+    one a rung (the last step of a rung may fall either side of the
+    test), w within 1e-9·max|w|."""
+    from ocean_torch import system
+    runs = {}
+    for where in ("cpu", "cuda"):
+        prob = dataclasses.replace(_small_problem(
+            where, K=10, viscosity=0.01, newton_continuation=6),
+            solve_log=[])
+        res = system._solve_ns(prob, system.initial_control(prob, 0).quad)
+        assert res.converged
+        runs[where] = (res.w, [r["iterations"] for r in prob.solve_log])
+    assert len(runs["cuda"][1]) == len(runs["cpu"][1]) == 8
+    assert all(abs(g - c) <= 1 for g, c in zip(runs["cuda"][1],
+                                                runs["cpu"][1]))
+    assert _rel(runs["cuda"][0], runs["cpu"][0]) < 1e-9
+
+
+def test_float32_chord_on_card(dev):
+    """The float32 chord sweeps and the explicit float32 inverse on the
+    card against the CPU at Nx = 8: the same Newton iterations, J within
+    1e-9 and f_new within 1e-8 relative."""
+    from ocean_torch import system
+    for kw in (dict(newton_chord_f32=True),
+               dict(newton_chord_f32=True, dense_apply="inverse")):
+        steps = {}
+        for where in ("cpu", "cuda"):
+            prob = _small_problem(where, newton_reuse_lu=True, **kw)
+            steps[where] = system.gd_step(
+                prob, system.initial_control(prob, 0), 1.0)
+        gpu, cpu = steps["cuda"], steps["cpu"]
+        assert not gpu.diverged and gpu.fwd.newton.converged
+        assert gpu.fwd.newton.iterations == cpu.fwd.newton.iterations
+        assert abs(float(gpu.J) / float(cpu.J) - 1) < 1e-9
+        assert _rel(gpu.f_new.quad, cpu.f_new.quad) < 1e-8

@@ -8,12 +8,15 @@ seed), line search off as in the study's command line.
 * ``run_all_cases_fused`` against the port's own ``run_ensemble`` over the
   four cases (bit for bit), and against ``run_all_cases`` (each case
   through the driver: the same J histories to 1e-12).
-* The stored ū flow present: ``run`` raises ``NotImplementedError``.
+* The stored ū flow present (a dolfin checkpoint): ``norm_table.txt``
+  holds ‖u − ū‖ in L² and H¹; at another resolution the comparison is
+  skipped with the JAX package's message.
 * The command line on the CPU.
 """
 
 import dataclasses
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -24,8 +27,12 @@ from ocean_jax.pipelines import initial_control as jax_ic
 
 from ocean_torch import system
 from ocean_torch.config import OCPConfig
+from ocean_torch.fem import assemble, make_space
+from ocean_torch.mesh import rectangle_mesh
 from ocean_torch.opt.ensemble import run_ensemble, stack_controls
 from ocean_torch.pipelines import initial_control
+
+from torch_dolfin_files import write_dolfin_velocity
 
 torch.set_num_threads(2)
 
@@ -100,13 +107,35 @@ def test_fused_cases_are_the_ensemble_and_the_driver(runs, tmp_path):
             < 1e-12 * float(ens.j_history[:, c].abs().max())
 
 
-def test_stored_ubar_is_not_ported(tmp_path):
-    ubar = tmp_path / "u_bar_chapter_6.3.3" / "paraview" / "checkpoint"
+def test_stored_ubar_is_not_ported(runs, tmp_path, capsys):
+    """The stored ū flow, once refused, gives ``norm_table.txt``: from a
+    dolfin checkpoint on this mesh, and at another resolution the JAX
+    package's skip message."""
+    ubar = tmp_path / "ref" / "u_bar_chapter_6.3.3" / "paraview" / "checkpoint"
     ubar.mkdir(parents=True)
-    (ubar / "u.h5").write_bytes(b"")
-    cfg = OCPConfig(**BASE, reference_runs_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="u_bar"):
-        initial_control.run(cfg, device="cpu")
+    ref = str(tmp_path / "ref")
+    shutil.copytree(os.path.join(runs, f"{K}_buoys"),
+                    os.path.join(ref, f"{K}_buoys"))
+    mesh = rectangle_mesh((0.0, 0.0), (2.0, 2.0), 8, 8)
+    space = make_space(mesh)
+    u = np.random.default_rng(4).standard_normal((space.n_p2, 2))
+    write_dolfin_velocity(str(ubar / "u.h5"), mesh,
+                          space.cell_dofs_p2.numpy(), 0.1 * u)
+    out = str(tmp_path / "out") + "/"
+    cfg = OCPConfig(**{**BASE, "num_steps": 1}, reference_runs_dir=ref,
+                    out_dir=out)
+    res, prob, table = initial_control.run(cfg, verbose=False, device="cpu")
+    uf, _ = prob.space.split(res.last_fwd.w)
+    l2, h1 = assemble.velocity_diff_norms(prob.space, uf,
+                                          torch.as_tensor(0.1 * u))
+    assert table == (float(l2), float(h1))
+    assert open(out + "norm_table.txt").read().split()[2:] == \
+        [str(v) for v in table]
+    _, _, skipped = initial_control.run(
+        dataclasses.replace(cfg, unit_square_resolution=6),
+        write_artifacts=False, device="cpu")
+    assert skipped is None and "skipping u_bar comparison: checkpoint " \
+        "mesh has 81 vertices but ours has 49" in capsys.readouterr().out
 
 
 def test_command_line(runs, tmp_path, monkeypatch):

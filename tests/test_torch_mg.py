@@ -232,12 +232,18 @@ def test_resolve_adjoint_reuse_follows_jax(mode):
 
 
 def test_refusals_name_what_is_missing():
-    """Continuation stays refused on both solver paths (saying which), and
-    a legacy context without a leaf inverse or a sub-level raises."""
-    with pytest.raises(NotImplementedError, match="'mg'"):
-        _problem(8, "mg", newton_continuation=2)
-    with pytest.raises(NotImplementedError, match="'dense'"):
-        _problem(8, "dense", newton_continuation=2)
+    """Continuation, once refused, runs on both solver paths to the same
+    state, and a legacy context without a leaf inverse or a sub-level
+    raises."""
+    states = []
+    for solver in ("mg", "dense"):
+        p = dataclasses.replace(_problem(8, solver, newton_continuation=2,
+                                         viscosity=0.2), solve_log=[])
+        res = system._solve_ns(p, system.initial_control(p, 0).quad)
+        assert res.converged and [r["solve"] for r in p.solve_log] == \
+            ["ns_rung"] * 3 + ["ns_newton"]
+        states.append(res.w)
+    assert (states[0] - states[1]).abs().max() < 1e-9 * states[1].abs().max()
     pm = _problem(8, "mg")
     legacy = dataclasses.replace(pm.mg, ainv_c=None)
     op = assemble.ns_operator(pm.space, pm.bq,

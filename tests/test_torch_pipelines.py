@@ -25,9 +25,13 @@ from ocean_jax.io import checkpoint as jax_checkpoint
 from ocean_jax.pipelines import ocp as jax_ocp
 
 from ocean_torch import cli, convert
+from ocean_torch import control as ctrl_mod
 from ocean_torch.config import OCPConfig
-from ocean_torch.io import artifacts, checkpoint
+from ocean_torch.fem import make_space
+from ocean_torch.io import artifacts, checkpoint, plots
 from ocean_torch.pipelines import limits, ocp
+
+from torch_dolfin_files import write_dolfin_velocity
 
 # The suite runs in several worker processes on one machine; PyTorch's
 # default of one thread a core in each of them oversubscribes it.
@@ -62,9 +66,15 @@ def test_lshape_ocp_descends(tmp_path):
     assert not bool(res.last_fwd.mask.any())
     assert "L-shape" in open(d + "variables.txt").read()
     assert not [a for a in ARTIFACTS if not os.path.isfile(d + a)]
-    # no figure is written yet
-    assert not [f for _, _, fs in os.walk(d) for f in fs
-                if f.endswith(".png")]
+    # the JAX package's figures: mesh, cost, final field, a flow field and
+    # a buoy-movement frame an iteration, a velocity comparison a buoy
+    pngs = sorted(os.path.relpath(os.path.join(r, f), d)
+                  for r, _, fs in os.walk(d) for f in fs if f.endswith(".png"))
+    assert pngs == sorted(
+        ["mesh.png", "J.png", "u_field.png"]
+        + [f"flow_fields/u_{i}_field.png" for i in range(3)]
+        + [f"buoy_movements/frames/buoy_movement_{i}.png" for i in range(3)]
+        + [f"ud_plot_buoy_{k}.png" for k in range(3)])
 
 
 @pytest.fixture(scope="module")
@@ -110,7 +120,7 @@ def test_artifact_text_equals_jax(both_runs):
             assert zt["w"].shape == zj["w"].shape
 
 
-def test_checkpoints_load_across_packages(both_runs):
+def test_checkpoints_load_across_packages(both_runs, tmp_path):
     dj, dt, rj, rt, pj, pt = both_runs
     # written by the JAX package, loaded by the port
     for path in ("q_backup/q.npz", "checkpoints/q.npz"):
@@ -141,8 +151,18 @@ def test_checkpoints_load_across_packages(both_runs):
     # a control carried across as an object
     assert torch.equal(convert.control(rj.f).quad,
                        torch.as_tensor(np.asarray(rj.f.quad)))
-    with pytest.raises(NotImplementedError):
+    # a dolfin file: load_control names load_dolfin_control (as in the JAX
+    # package), which reads it on this mesh
+    with pytest.raises(ValueError, match="load_dolfin_control"):
         checkpoint.load_control("q.h5", pt.space, pt.bq)
+    h5 = str(tmp_path / "q.h5")
+    mesh = ocp._mesh(OCPConfig(L_shape_resolution=6, **LSHAPE))
+    write_dolfin_velocity(h5, mesh, pt.space.cell_dofs_p2.numpy(),
+                          rt.f.p2.numpy(), name="f")
+    f_h5 = checkpoint.load_dolfin_control(h5, mesh, pt.space, pt.bq)
+    assert torch.equal(f_h5.p2, rt.f.p2)
+    assert torch.equal(f_h5.quad,
+                       ctrl_mod.from_p2(pt.space, pt.bq, rt.f.p2).quad)
 
 
 def test_warm_start_and_resume(both_runs, tmp_path):
@@ -171,9 +191,17 @@ def test_warm_start_and_resume(both_runs, tmp_path):
                 verbose=False, device="cpu")
 
 
-def test_limits_run_small(tmp_path):
+def prob_cfg(cfg):
+    """The square of a limits run (which forces the square)."""
+    return dataclasses.replace(cfg, L_shape=False)
+
+
+def test_limits_run_small(tmp_path, capsys, monkeypatch):
     """The scalability pipeline at Nx=8, K=100: measurements synthesized
-    into a cache, fast paths on, line search on, escape threshold 10."""
+    into a cache, fast paths on, line search on, escape threshold 10.
+    Figures off: a hundred buoys' would take a minute here, and
+    ``test_torch_plots.py`` draws them."""
+    monkeypatch.setattr(plots, "available", lambda: False)
     d, cache = str(tmp_path) + "/run/", str(tmp_path / "ud")
     cfg = OCPConfig(ud_experiment="100_buoys", unit_square_resolution=8,
                     use_line_search=True, LR=5.0, num_steps=2, out_dir=d,
@@ -183,8 +211,8 @@ def test_limits_run_small(tmp_path):
                                        ud_cache_dir=cache)
     assert norm_table is None and prob.K == 100
     assert prob.space.locator.domain == "rect"
-    assert (prob.newton_reuse_lu, prob.psrc_method, prob.ode_backend) == \
-        (True, "fused", "pallas")
+    assert (prob.newton_reuse_lu, prob.psrc_method, prob.ode_backend,
+            prob.projector.mode) == (True, "fused", "pallas", "inverse")
     assert os.path.isfile(cache + "/100_buoys/u_d_array.npy")
     assert res.iterations_run == 2 and res.j_array[1] < res.j_array[0]
     assert not [a for a in ARTIFACTS if not os.path.isfile(d + a)]
@@ -195,17 +223,29 @@ def test_limits_run_small(tmp_path):
                             write_artifacts=False, verbose=False,
                             fast_paths=False, device="cpu",
                             ud_cache_dir=cache)
-    assert (slow.newton_reuse_lu, slow.psrc_method, slow.ode_backend) == \
-        (False, "scatter", "gather")
-    # the u_bar comparison never passes silently: with the stored
-    # checkpoint present the run refuses by name
+    assert (slow.newton_reuse_lu, slow.psrc_method, slow.ode_backend,
+            slow.projector.mode) == (False, "scatter", "gather", "lu")
+    # the u_bar comparison: with the stored checkpoint present the run
+    # writes norm_table.txt; at another resolution it says it skips
     ubar = tmp_path / "ref" / "u_bar_chapter_6.3.3" / "paraview" / "checkpoint"
     ubar.mkdir(parents=True)
-    (ubar / "u.h5").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="u_bar"):
-        limits.run(dataclasses.replace(
-            cfg, reference_runs_dir=str(tmp_path / "ref")), verbose=False,
-            device="cpu", ud_cache_dir=cache)
+    u, _ = prob.space.split(res.last_fwd.w)
+    write_dolfin_velocity(str(ubar / "u.h5"), ocp._mesh(prob_cfg(cfg)),
+                          prob.space.cell_dofs_p2.numpy(), u.numpy())
+    ref_cfg = dataclasses.replace(cfg, reference_runs_dir=str(tmp_path / "ref"),
+                                  num_steps=1, out_dir=d + "ubar/")
+    _, _, table = limits.run(ref_cfg, verbose=False, device="cpu",
+                             ud_cache_dir=cache)
+    assert len(table) == 2 and all(v > 0 for v in table)
+    assert open(d + "ubar/norm_table.txt").read().split()[2:] == \
+        [str(v) for v in table]
+    _, _, skipped = limits.run(
+        dataclasses.replace(ref_cfg, unit_square_resolution=6,
+                            out_dir=d + "ubar6/"),
+        verbose=True, device="cpu", ud_cache_dir=cache)
+    assert skipped is None and "skipping u_bar comparison: checkpoint mesh " \
+        "has 81 vertices but ours has 49" in capsys.readouterr().out
+    assert not os.path.exists(d + "ubar6/norm_table.txt")
 
 
 ARGVS = [
@@ -240,16 +280,34 @@ def test_cli_flags_give_the_jax_config(argv):
 
 
 @pytest.mark.parametrize("flags,name", [
-    (["--linear-solver", "mg", "--newton-continuation", "2"],
-     "linear_solver"),
-    (["--newton-continuation", "3"], "newton_continuation"),
-    (["--newton-chord-f32"], "newton_chord_f32"),
+    (["--linear-solver", "mg", "--newton-continuation", "2",
+      "--viscosity", "0.5"], "linear_solver"),
+    (["--newton-continuation", "3", "--viscosity", "0.2"],
+     "newton_continuation"),
+    (["--newton-chord-f32", "--fast"], "newton_chord_f32"),
     (["--load-q", "q.h5"], "load_dolfin_control"),
 ])
-def test_cli_unported_flags_raise_by_name(tmp_path, flags, name):
-    with pytest.raises(NotImplementedError, match=name):
-        ocp.main(["--device", "cpu", "--l-shape", "--l-shape-resolution",
-                  "4", "--out-dir", str(tmp_path) + "/"] + flags)
+def test_cli_once_refused_flags_run(tmp_path, flags, name):
+    """The four command lines once refused by name run to their end and
+    write their artifacts; ``--load-q`` takes a dolfin control on the
+    mesh."""
+    out = str(tmp_path) + "/run/"
+    if name == "load_dolfin_control":
+        cfg = OCPConfig(L_shape_resolution=4, **LSHAPE)
+        mesh = ocp._mesh(cfg)
+        space = make_space(mesh)
+        u = np.random.default_rng(2).standard_normal((space.n_p2, 2))
+        write_dolfin_velocity(str(tmp_path / "q.h5"), mesh,
+                              space.cell_dofs_p2.numpy(), 0.1 * u, name="f")
+        flags = ["--load-q", str(tmp_path / "q.h5")]
+    res, prob = ocp.main(["--device", "cpu", "--l-shape",
+                          "--l-shape-resolution", "4", "--num-steps", "1",
+                          "--out-dir", out] + flags)
+    assert res.iterations_run == 1 and res.last_fwd.newton.converged
+    assert not [a for a in ARTIFACTS if not os.path.isfile(out + a)]
+    assert prob.newton_continuation == int(
+        dict(zip(flags, flags[1:])).get("--newton-continuation", 0))
+    assert prob.newton_chord_f32 == ("--newton-chord-f32" in flags)
 
 
 def test_cli_entry_points_run(tmp_path, monkeypatch):

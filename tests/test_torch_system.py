@@ -10,6 +10,7 @@ rtol 1e-9, and ``bench.py`` records 4e-9 relative gradient drift between
 JAX backends of this very configuration.
 """
 
+import dataclasses
 import subprocess
 import sys
 
@@ -107,13 +108,23 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch, tmp_path):
 
 
 def test_unported_branches_raise():
+    """The knobs this test once found refused (the float32 chord, the
+    continuation on either solver) now build problems that solve; the
+    L-shape, the "left" diagonal, the "grid" backend and Armijo too."""
     base = dict(u_d=np.zeros((100, 200, 2)), x0=seed_positions(100),
                 device="cpu")
     for kw in (dict(newton_chord_f32=True),
-               dict(linear_solver="mg", newton_continuation=2),
-               dict(newton_continuation=3)):
-        with pytest.raises(NotImplementedError):
-            system.build_problem(OCPConfig(**{**FAST, **kw}), **base)
+               dict(linear_solver="mg", newton_continuation=2,
+                    viscosity=0.2),
+               dict(newton_continuation=3, viscosity=0.2)):
+        p = dataclasses.replace(
+            system.build_problem(OCPConfig(**{**FAST, **kw}), **base),
+            solve_log=[])
+        res = system._solve_ns(p, system.initial_control(p, 4).quad)
+        assert res.converged and all(r["converged"] for r in p.solve_log)
+        rungs = [r for r in p.solve_log if r["solve"] == "ns_rung"]
+        assert len(rungs) == kw.get("newton_continuation", -1) + 1
+    assert p.linear_solver == "dense" and p.fac0.lu.dtype == torch.float64
     # the L-shape, the "left" diagonal, the "grid" ODE backend and the
     # Armijo line search are ported: none raises
     p = system.build_problem(
