@@ -154,14 +154,42 @@ Phases, in order; any failure exits non-zero before the last line:
     step with ``dense_apply="inverse"``, with ``newton_chord_f32`` and with
     both: J within 1e-9 relative of path 1's and f_new within
     1e-8·max|f_new|, the kernels' counts, the median of 3 steps, the
-    stages.
+    stages;
+20. path 11, the sharded steps over ``torch.distributed`` and gen-1, the
+    ranks started by ``ocean_torch.parallel.launch.spawn``. 11a: path 1's
+    step through ``parallel.make_sharded_step`` on one nccl rank: counts
+    set to 0 in the rank, one step, counts read (kernels 1–3 only), J
+    within 1e-12 relative and f_new within 1e-12 of phase 6's
+    ``gd_step``, the same LR and escape count, the median of 3 steps,
+    each timed after path 1's ``gd_step`` in the same rank (the ranks
+    take phase 3's configuration, control and LR, and path 2's control);
+    kernels 1–3 on the rank's lanes equal to their plain versions; then
+    the step with Armijo against ``gd_step(use_line_search=True)``: the
+    same LR, J and probes (primal ODE launches − 1). 11b: the same on
+    three gloo ranks sharing the card (10⁴ lanes padded to 10,002), each
+    rank's outputs bitwise equal to rank 0's (a broadcast and one
+    ``all_reduce`` of the count of differing words); then path 2's step
+    on two of them (kernels 1, 2 and 5 on each shard) with path 2's J,
+    control and escape count. 11c: path 9a's configuration (Nx=64, mg,
+    400 buoys) through ``make_sharded_step_2d`` on a 2 × 1 layout of gloo
+    ranks and a 1 × 1 layout on nccl: J and f_new within 1e-9 of the
+    single-device mg step, the same escape count. 11d:
+    ``gen1.main.run(nx=32, K=5, num_steps=3, grad_check=True)``: J
+    decreasing, the centred FD table within 0.2 of gradj (the JAX test's
+    level); the gen-1 Stokes solve on path 6's graded pipe with its
+    obstacle (dense LU): finite and driven. Prints
+    ``sharded_gd_iteration_seconds_10000_buoys_{nccl1,gloo3}``,
+    ``sharded2d_hires_nx64_gd_iteration_seconds_{gloo2,nccl1}`` and
+    ``gen1_run_seconds_nx32``.
 Phase 4 also runs the hard inputs of the "left" diagonal and the pipes.
 Path 3 runs with ``dense_apply="inverse"`` (``limits.run``'s fast paths,
 as in the JAX package).
 
 The line before the last is the kernels' JSON record, one entry per
-kernel and geometry (``geometry``); the last line is ``{"ok": true,
-"device": {...}}``. Imports nothing of JAX.
+kernel and geometry (``geometry``), with the launches of paths 1–2 and
+``launches_path3``, ``_path4``, ``_path8`` and ``_path11`` (the counted
+sharded steps of 11a and, for the segment sum, 11b); the last line is
+``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
 import contextlib
@@ -2143,6 +2171,439 @@ def path10c_float32(cfg, u_d, x0, f, lr, res1, card: str) -> None:
         del prob
 
 
+# --- path 11: the sharded steps and gen-1 ------------------------------------
+#
+# Path 11 spawns its ranks (``ocean_torch.parallel.launch.spawn``); the rank
+# functions below run in those processes. A failed check there exits the
+# rank non-zero, which fails the launch and so the run.
+
+PATH11_TIMEOUT_S = 300.0       # a rank that waits longer in a collective fails
+
+
+def path1_config():
+    """The main path's configuration (phase 3)."""
+    from ocean_torch.config import OCPConfig
+    return OCPConfig(ud_experiment="10000_buoys", unit_square_resolution=32,
+                     use_line_search=False, num_steps=1,
+                     psrc_method="fused", ode_backend="pallas",
+                     newton_reuse_lu=True)
+
+
+def hires_config():
+    """Path 9a's configuration (Nx=64, 400 buoys, mg: what "auto" picks
+    there), one step without the line search."""
+    from ocean_torch.config import OCPConfig
+    return OCPConfig(ud_experiment="400_buoys", unit_square_resolution=64,
+                     use_line_search=False, LR=1.0, num_steps=1,
+                     psrc_method="fused", ode_backend="pallas",
+                     linear_solver="mg")
+
+
+def build_on(cfg, device, ud_cfg=None):
+    """The problem of ``cfg`` on ``device`` from the u_d cache (the main
+    process synthesized it)."""
+    from ocean_torch import system
+    from ocean_torch.pipelines.limits import ensure_ud
+    u_d, x0 = ensure_ud(ud_cfg or cfg,
+                        cache_dir=str(ROOT / "data" / "ud_torch"),
+                        device=device)
+    return system.build_problem(cfg, u_d=u_d, x0=x0, device=device)
+
+
+def rank_lanes(K: int, group) -> slice:
+    import torch.distributed as dist
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    return slice(r * (K // n), (r + 1) * (K // n))
+
+
+def shard_kernels(prob_p, f, group, label: str) -> dict:
+    """This rank's lanes of the padded problem ``prob_p`` at control ``f``:
+    the kernels the sharded step launched, each on the inputs it handed
+    them (the shard's x0, trajectories, residuals and point sources),
+    equal (``torch.equal``) to its plain version. Returns the maximum
+    errors by kernel (0 where equal)."""
+    import dataclasses as dc
+    import torch
+    from ocean_torch import system
+    from ocean_torch.adjoint.cuda_psrc import (point_source_limbs,
+                                               point_source_limbs_plain)
+    from ocean_torch.ode.cuda_adjoint import (adjoint_ode_steps,
+                                              adjoint_ode_steps_plain)
+    from ocean_torch.ode.cuda_ode import (primal_ode_steps,
+                                          primal_ode_steps_plain)
+    from ocean_torch.ode.grideval import velocity_to_grid, grad_to_grid
+    from ocean_torch.ops.psum_cuda import (ozaki_slice_sums,
+                                           ozaki_slice_sums_plain)
+    from ocean_torch.ops.scatter import pow2_scale
+    from ocean_torch.parallel.sharding import make_buoy_ode_impl
+
+    fwd = system._forward(prob_p, f.quad,
+                          ode_impl=make_buoy_ode_impl(group))
+    ln = rank_lanes(prob_p.K, group)
+    w = prob_p.buoy_weights[ln]
+    prob = dc.replace(prob_p, u_d=prob_p.u_d[ln], x0=prob_p.x0[ln],
+                      buoy_weights=w)
+    mask = fwd.mask[ln]
+    if prob.adjoint_mode != "consistent":      # as _adjoint_rhs_body drops
+        mask = mask | (w == 0)
+    fwd = system.ForwardState(fwd.w, fwd.x[ln], fwd.u_values[ln], mask,
+                              fwd.newton, fwd.x_raw[ln], fwd.kfail[ln])
+    ge, h, nt = prob.grid, prob.h, prob.nt
+    u, _ = prob.space.split(fwd.w)
+    errs = {}
+    u_img = velocity_to_grid(ge, u)
+    got = primal_ode_steps(ge, u_img, prob.x0, h, nt)
+    plain = primal_ode_steps_plain(ge, u_img, prob.x0, h, nt)
+    check(all(torch.equal(a, b) for a, b in zip(got, plain)),
+          f"{label}: primal_ode differs from the plain version on the shard")
+    errs["primal_ode"] = max(float((a - b).abs().max())
+                             for a, b in zip(got[:2], plain[:2]))
+    g_img = grad_to_grid(ge, prob.projector.project(prob.space, u))
+    resid = (fwd.u_values - prob.u_d).contiguous()
+    if prob.adjoint_mode == "consistent":
+        x_in = fwd.x_raw.contiguous()
+        vlim = torch.where(fwd.mask, fwd.kfail.to(torch.int64) - 1, nt)
+    else:
+        x_in = fwd.x
+        vlim = torch.full((prob.K,), nt, device=x_in.device)
+    vlim = vlim.to(torch.int32)
+    mu = adjoint_ode_steps(ge, g_img, x_in, resid, vlim, h)
+    check(torch.equal(mu, adjoint_ode_steps_plain(ge, g_img, x_in, resid,
+                                                  vlim, h)),
+          f"{label}: adjoint_ode differs from the plain version on the shard")
+    errs["adjoint_ode"] = 0.0
+    got = scatter_inputs(prob, fwd)
+    if prob.psrc_method == "fused":
+        _, x, gamma = got["point_sources"]
+        pts = x.reshape(-1, 2).contiguous()
+        r = (gamma.reshape(-1, 2) / pow2_scale(gamma.reshape(-1, 2)))
+        r = r.contiguous()
+        check(all(torch.equal(a, b) for a, b in zip(
+            point_source_limbs(ge, pts, r),
+            point_source_limbs_plain(ge, pts, r))),
+            f"{label}: point_sources differs from the plain version")
+        errs["point_sources"] = 0.0
+    else:
+        ids, vals, scale, S = got["segment_sum"]
+        check(torch.equal(ozaki_slice_sums(ids, vals, scale, S),
+                          ozaki_slice_sums_plain(ids, vals, scale, S)),
+              f"{label}: segment_sum differs from the plain version")
+        errs["segment_sum"] = 0.0
+    torch.cuda.synchronize()
+    return errs
+
+
+def ranks_agree(vals, group, label: str) -> None:
+    """Every rank of ``group`` holds the bits of its first rank: that
+    rank's values broadcast, the count of differing words summed with one
+    ``all_reduce``."""
+    import torch
+    import torch.distributed as dist
+    group = dist.group.WORLD if group is None else group
+    v = torch.cat([torch.as_tensor(t, dtype=torch.float64).reshape(-1)
+                   .to("cuda") for t in vals])
+    v0 = v.clone()
+    dist.broadcast(v0, src=dist.get_global_rank(group, 0), group=group)
+    diff = (v.view(torch.int64) != v0.view(torch.int64)).sum()
+    diff = diff.to(torch.float64).reshape(1)
+    dist.all_reduce(diff, group=group)
+    check(float(diff) == 0.0, f"{label}: {int(diff)} words differ from the "
+          "first rank's")
+
+
+def sharded_run(step, f, lr, label: str, repeats: int = 0,
+                beside=None) -> dict:
+    """Counts set to 0, one sharded step, counts read; then ``repeats``
+    timed steps at the same control (each must give the same J), each
+    after a timed call of ``beside`` where one is given (the
+    single-device step in the same process). Returns the step's outputs,
+    the counts and the seconds."""
+    import torch
+    from ocean_torch import kernels
+    kernels.reset_launch_counts()
+    out = step(f.quad, f.p2, lr)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    f_quad, f_p2, lr_new, j, count, diverged = out
+    times, times_beside = [], []
+    for _ in range(repeats):
+        if beside is not None:
+            t0 = time.perf_counter()
+            beside()
+            torch.cuda.synchronize()
+            times_beside.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        again = step(f.quad, f.p2, lr)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        check(float(again[3]) == float(j), f"{label}: J moved between "
+              "steps at one control")
+    return {"f_quad": f_quad.cpu(), "f_p2": f_p2.cpu(), "lr": float(lr_new),
+            "J": float(j), "mask_count": float(count),
+            "diverged": bool(diverged), "launches": counts,
+            "seconds": times, "seconds_beside": times_beside,
+            "outputs": out}
+
+
+def path11_1d(prob, f, lr, group, label: str, kernels_on: tuple,
+              beside=None) -> dict:
+    """11a/11b: the buoy-sharded step of ``prob`` on ``group``, counted,
+    timed (median of 3, each beside ``beside`` where given), its kernels
+    on this rank's shard held to their plain versions, the ranks'
+    agreement; then the step with Armijo."""
+    import torch.distributed as dist
+    from ocean_torch.parallel import make_sharded_step, pad_problem
+    n = dist.get_world_size(group)
+    step = make_sharded_step(prob, group)
+    res = sharded_run(step, f, lr, label, repeats=3, beside=beside)
+    c = res["launches"]
+    check(all(c[k] >= 1 for k in kernels_on)
+          and all(c[k] == 0 for k in c if k not in kernels_on),
+          f"{label}: launches {c}, expected exactly {kernels_on}")
+    res["kernel_err"] = shard_kernels(pad_problem(prob, n), f, group, label)
+    out = res.pop("outputs")
+    ranks_agree([out[3], out[2], out[0], out[1], out[4]], group, label)
+    step_ls = make_sharded_step(prob, group, use_line_search=True,
+                                max_ls_iters=80)
+    ls = sharded_run(step_ls, f, lr, label + ", Armijo")
+    out = ls.pop("outputs")
+    ranks_agree([out[3], out[2], out[0], out[1]], group, label + ", Armijo")
+    res["armijo"] = ls
+    res["K_pad"] = pad_problem(prob, n).K
+    return res
+
+
+def path11_2d(groups, label: str) -> dict:
+    """11c: the dof×buoy-sharded mg step at path 9a's configuration,
+    counted and timed once after the counted step."""
+    import torch
+    from ocean_torch import system
+    from ocean_torch.parallel import make_sharded_step_2d
+    from ocean_torch.config import OCPConfig
+    cfg = hires_config()
+    prob = build_on(cfg, torch.device("cuda", torch.cuda.current_device()),
+                    OCPConfig(ud_experiment="400_buoys",
+                              unit_square_resolution=32))
+    check(prob.linear_solver == "mg", f"{label}: not the mg path")
+    f = system.initial_control(prob, case=4)
+    res = sharded_run(make_sharded_step_2d(prob, groups), f, cfg.LR, label,
+                      repeats=1)
+    out = res.pop("outputs")
+    ranks_agree([out[3], out[0], out[1], out[4]], groups.dof, label)
+    ranks_agree([out[3], out[0], out[1], out[4]], groups.buoy, label)
+    return res, prob, f
+
+
+def control_on(quad, p2, device):
+    """A control handed to a rank (its two tensors, on the host)."""
+    from ocean_torch import control as ctrl_mod
+    return ctrl_mod.Control(quad.to(device), p2.to(device))
+
+
+def path11_nccl_rank(rank, world, device, cfg, f_parts, lr, f2_parts):
+    """11a and 11c on one nccl rank: the step on the world group (path 1,
+    each timed step beside path 1's single-device ``gd_step`` in this
+    process, then Armijo), the 2-D step on a 1 × 1 layout, and path 9a's
+    single-device mg step as the 2-D reference."""
+    from ocean_torch import system
+    from ocean_torch.parallel import make_2d_groups
+    groups = make_2d_groups(1, 1)
+    prob = build_on(cfg, device)
+    f = control_on(*f_parts, device)
+    out = {"1d": path11_1d(prob, f, lr, None, "11a (nccl, 1 rank)", PATH1,
+                           beside=lambda: system.gd_step(prob, f, lr))}
+    del prob
+    res, prob9, f9 = path11_2d(groups, "11c (nccl, 1 × 1)")
+    ref = system.gd_step(prob9, f9, 1.0)
+    out["2d"] = res
+    out["2d_ref"] = {"J": float(ref.J), "f_quad": ref.f_new.quad.cpu(),
+                     "mask_count": float(ref.fwd.mask.sum()),
+                     "diverged": bool(ref.diverged)}
+    return out
+
+
+def path11_gloo_rank(rank, world, device, cfg, f_parts, lr, f2_parts):
+    """11b and 11c on three gloo ranks sharing the card: path 1's step on
+    all three (10⁴ lanes → 10,002), path 2's on ranks 0–1, the 2-D step
+    on a 2 × 1 layout of ranks 0–1."""
+    import torch.distributed as dist
+    import dataclasses as dc
+    from ocean_torch.parallel import make_2d_groups
+    pair = dist.new_group([0, 1])
+    groups = make_2d_groups(2, 1)
+    prob = build_on(cfg, device)
+    f = control_on(*f_parts, device)
+    out = {"1d": path11_1d(prob, f, lr, None, f"11b (gloo, rank {rank} "
+                           "of 3)", PATH1)}
+    del prob
+    if rank >= 2:
+        return out
+    prob2 = build_on(dc.replace(cfg, psrc_method="ozaki_pallas",
+                                adjoint_mode="consistent"), device)
+    f2 = control_on(*f2_parts, device)
+    out["path2"] = path11_1d(prob2, f2, lr, pair,
+                             f"11b path 2 (gloo, rank {rank} of 2)", PATH2)
+    del prob2
+    out["2d"], _, _ = path11_2d(groups, f"11c (gloo, rank {rank} of 2 × 1)")
+    return out
+
+
+def compare_step(label: str, got: dict, ref, rel_j: float, tol_f: float):
+    """A sharded step's outputs against a single-device ``gd_step``: J
+    within ``rel_j`` relative, f_new within ``tol_f``·max|f_new| (path 1's
+    new control is large, see the printed max|f_new|: 1e-12 absolute
+    would be below float64's spacing there)."""
+    j_ref = float(ref.J)
+    dj = abs(got["J"] - j_ref) / abs(j_ref)
+    df = max(float((got[k] - r.cpu()).abs().max() / r.abs().max())
+             for k, r in (("f_quad", ref.f_new.quad), ("f_p2", ref.f_new.p2)))
+    check(not got["diverged"] and not ref.diverged, f"{label}: diverged")
+    check(dj <= rel_j and df <= tol_f, f"{label}: J rel {dj}, f_new {df}")
+    check(got["lr"] == ref.lr, f"{label}: LR {got['lr']} vs {ref.lr}")
+    check(got["mask_count"] == float(ref.fwd.mask.sum()),
+          f"{label}: escaped {got['mask_count']} vs "
+          f"{int(ref.fwd.mask.sum())}")
+    return dj, df
+
+
+def path11_sharded(cfg, prob, f, lr, res1, f2, res2, card: str) -> dict:
+    """Path 11a–c: launch the ranks with path 1's configuration, control
+    and LR and path 2's control, hold their steps to the single-device
+    ones. Returns the launch counts of the counted sharded steps."""
+    import statistics
+    import torch
+    from ocean_torch import system
+    from ocean_torch.parallel import launch
+
+    res_ls = system.gd_step(prob, f, lr, use_line_search=True,
+                            max_ls_iters=80)
+    big = [float(r.f_new.quad.abs().max()) for r in (res1, res_ls, res2)]
+    print(f"path 11 references: max|f_new| {big[0]!r} (path 1), "
+          f"{big[1]!r} (Armijo), {big[2]!r} (path 2)", flush=True)
+    torch.cuda.empty_cache()
+    runs = {}
+    for name, fn, world, backend in (
+            ("nccl1", path11_nccl_rank, 1, "nccl"),
+            ("gloo3", path11_gloo_rank, 3, "gloo")):
+        t0 = time.perf_counter()
+        runs[name] = launch.spawn(
+            fn, world, backend, "cuda", timeout_s=PATH11_TIMEOUT_S,
+            args=(cfg, (f.quad.cpu(), f.p2.cpu()), lr,
+                  (f2.quad.cpu(), f2.p2.cpu())))
+        print(f"path 11 launch {name}: {time.perf_counter() - t0:.2f} s "
+              "with process start-up and set-up", flush=True)
+    for name, ranks in runs.items():
+        for r, out in enumerate(ranks):
+            one = out["1d"]
+            label = f"11 {name} rank {r}"
+            dj, df = compare_step(label, one, res1, 1e-12, 1e-12)
+            ls = one["armijo"]
+            dj_ls, df_ls = compare_step(label + " Armijo", ls, res_ls,
+                                        1e-12, 1e-12)
+            probes = ls["launches"]["primal_ode"] - 1
+            check(probes == res_ls.inner_iterations, f"{label}: {probes} "
+                  f"probes, gd_step {res_ls.inner_iterations}")
+            print(f"path {label}: J={one['J']!r} rel {dj!r} f_new rel {df!r} "
+                  f"K_pad={one['K_pad']} launches={one['launches']} shard "
+                  f"kernels equal to plain {one['kernel_err']}; Armijo LR "
+                  f"{ls['lr']!r} probes {probes} (gd_step {res_ls.lr!r}, "
+                  f"{res_ls.inner_iterations}) J rel {dj_ls!r} f_new "
+                  f"{df_ls!r}", flush=True)
+        t = ranks[0]["1d"]["seconds"]
+        print(f"sharded_gd_iteration_seconds_10000_buoys_{name}: median "
+              f"{statistics.median(t)!r} (repeats {t!r}) on {card}",
+              flush=True)
+        tb = ranks[0]["1d"]["seconds_beside"]
+        if tb:
+            print(f"path 1 gd_step in the same rank, each before a sharded "
+                  f"step: median {statistics.median(tb)!r} (repeats "
+                  f"{tb!r}) on {card}", flush=True)
+    check(runs["gloo3"][0]["1d"]["K_pad"] == 10002, "11b: not 10,002 lanes")
+    counts = dict(runs["nccl1"][0]["1d"]["launches"])
+    for r in (0, 1):
+        p2 = runs["gloo3"][r]["path2"]
+        dj, df = compare_step(f"11b path 2 rank {r}", p2, res2, 1e-12, 1e-12)
+        print(f"path 11b path 2 (gloo, rank {r} of 2): J={p2['J']!r} rel "
+              f"{dj!r} f_new rel {df!r} escaped {p2['mask_count']} (path 2: "
+              f"{int(res2.fwd.mask.sum())}) launches={p2['launches']} shard "
+              f"kernels equal to plain {p2['kernel_err']}", flush=True)
+    counts["segment_sum"] = runs["gloo3"][0]["path2"]["launches"][
+        "segment_sum"]
+    ref = runs["nccl1"][0]["2d_ref"]
+    for name, out in (("gloo2", runs["gloo3"][0]["2d"]),
+                      ("nccl1", runs["nccl1"][0]["2d"])):
+        dj = abs(out["J"] - ref["J"]) / abs(ref["J"])
+        df = float((out["f_quad"] - ref["f_quad"]).abs().max()
+                   / ref["f_quad"].abs().max())
+        check(not out["diverged"] and not ref["diverged"]
+              and dj <= 1e-9 and df <= 1e-9
+              and out["mask_count"] == ref["mask_count"],
+              f"11c {name}: J rel {dj}, f_new {df}, escaped "
+              f"{out['mask_count']} vs {ref['mask_count']}")
+        print(f"path 11c ({name}): J={out['J']!r} rel {dj!r} f_new rel {df!r} "
+              f"escaped {out['mask_count']} launches={out['launches']}",
+              flush=True)
+        print(f"sharded2d_hires_nx64_gd_iteration_seconds_{name}: "
+              f"{out['seconds'][0]!r} on {card}", flush=True)
+    print("path 11: gloo stages CUDA collectives through the host, and its "
+          "ranks share one card: its times say what sharing one card costs, "
+          "not what a user of several cards pays", flush=True)
+    return counts
+
+
+def path11_gen1(card: str) -> None:
+    """11d: the gen-1 driver at the reference's size on the card (J
+    descends, the centred FD table closes below 0.2 of gradj, the JAX
+    test's level), then the gen-1 Stokes solve on path 6's graded pipe."""
+    import numpy as np
+    import torch
+    from ocean_torch import control as ctrl_mod
+    from ocean_torch.fem import (assemble, make_space, make_boundary_quad,
+                                 dirichlet_velocity_bc)
+    from ocean_torch.gen1 import NavierStokesSolver
+    from ocean_torch.gen1 import main as gen1_main
+    from ocean_torch.mesh import mark_boundary_facets, structured
+
+    t0 = time.perf_counter()
+    out = gen1_main.run(nx=32, K=5, num_steps=3, grad_check=True,
+                        verbose=False, device="cuda")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    j = out["J"]
+    best = min(err for _, err, _ in out["grad_check"]) / abs(out["gradj"])
+    check(len(j) == 3 and all(np.isfinite(j))
+          and all(b < a for a, b in zip(j, j[1:])),
+          f"11d: gen-1 J does not descend: {j}")
+    check(best < 0.2, f"11d: gen-1 FD check closes at {best} of gradj")
+    print(f"path 11d gen-1 (nx=32, K=5, 3 steps, centred FD at 6 steps): "
+          f"J={j!r} gradj={out['gradj']!r} best FD relative error "
+          f"{best!r}", flush=True)
+    print(f"gen1_run_seconds_nx32: {secs!r} (3 iterations and the 12 FD "
+          f"forward solves) on {card}", flush=True)
+    eps = 1e-12
+    mesh, _ = structured.pipe_mesh(obstacle=True, graded=True)
+    space = make_space(mesh, "cuda")
+    bq = make_boundary_quad(mesh, mark_boundary_facets(
+        mesh, lambda x: np.abs(x[:, 0]) < eps), tag=1, device="cuda")
+    bc = dirichlet_velocity_bc(mesh, space, lambda x: x[:, 0] > eps)
+    ns = NavierStokesSolver(space, bq, *bc, alpha=1e-2, device="cuda")
+    q = ctrl_mod.from_expression(space, bq, lambda x: np.stack(
+        [x[:, 1] * (2 - x[:, 1]) / 4, np.zeros(len(x))], axis=1))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    w = ns.solve_stokes_step(q)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    u, p = space.split(w)
+    check(bool(torch.isfinite(w).all()) and float(u.abs().max()) > 1e-6,
+          "11d: the graded pipe's Stokes field is not finite and driven")
+    print(f"path 11d gen-1 Stokes on the graded pipe with its obstacle "
+          f"({space.ndof} dofs, dense LU): max|u| {float(u.abs().max())!r} "
+          f"‖div u‖ {float(assemble.divergence_l2(space, u))!r} in "
+          f"{secs:.2f} s, peak {torch.cuda.max_memory_allocated() / 2**30:.1f}"
+          f" GiB on {card}", flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2184,10 +2645,7 @@ def main() -> int:
                 print(f"  ptxas {name}: {line.strip()}")
 
     # --- 3. setup at the main path's configuration ------------------------
-    cfg = OCPConfig(ud_experiment="10000_buoys", unit_square_resolution=32,
-                    use_line_search=False, num_steps=1,
-                    psrc_method="fused", ode_backend="pallas",
-                    newton_reuse_lu=True)
+    cfg = path1_config()
     t0 = time.perf_counter()
     u_d, x0 = ensure_ud(cfg, cache_dir=str(ROOT / "data" / "ud_torch"),
                         device=dev)
@@ -2492,6 +2950,10 @@ def main() -> int:
     path10b_hires(card)
     path10c_float32(cfg, u_d, x0, f, lr, res1, card)
 
+    # --- 20. path 11: the sharded steps and gen-1 ---------------------------
+    counts_p11 = path11_sharded(cfg, prob, f, lr, res1, f2, res2, card)
+    path11_gen1(card)
+
     launches = {n: counts1[n] for n in PATH1}
     launches.update({n: counts2[n] for n in PATH2 if n not in PATH1})
     launches["p1_eval"] = counts3["p1_eval"]
@@ -2500,6 +2962,7 @@ def main() -> int:
         rec["launches_path3"] = counts_p3[rec["name"]]
         rec["launches_path4"] = counts_p4[rec["name"]]
         rec["launches_path8"] = counts_p8[rec["name"]]
+        rec["launches_path11"] = counts_p11[rec["name"]]
         rec["geometry"] = RECTANGLE
     print(json.dumps({"kernels": records + domain_records}))
     print(json.dumps({"ok": True, "device": {

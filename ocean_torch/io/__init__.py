@@ -1,7 +1,9 @@
-"""Run artifacts, checkpoints, ParaView export, the figure set
+"""Run artifacts, checkpoints (``.npz`` in ``checkpoint``, one
+``torch.save`` file in ``torch_ckpt``), ParaView export, the figure set
 (``plots``, matplotlib imported when a figure is drawn) and the dolfin
 HDF5 reader (``dolfin_h5``, h5py imported when a file is read)."""
 
-from . import artifacts, checkpoint, dolfin_h5, plots, xdmf
+from . import artifacts, checkpoint, dolfin_h5, plots, torch_ckpt, xdmf
 
-__all__ = ["artifacts", "checkpoint", "dolfin_h5", "plots", "xdmf"]
+__all__ = ["artifacts", "checkpoint", "dolfin_h5", "plots", "torch_ckpt",
+           "xdmf"]

@@ -355,21 +355,30 @@ def solve_operator_mg(op: Operator, op_c: Optional[Operator],
                       tol: float = 1e-11, restart: int = 60,
                       max_restarts: int = 4, inner_tol: float = 1e-6,
                       max_rounds: int = 4, pre: int = 2, post: int = 2,
-                      coarse_krylov: int = 0,
-                      nu_scale: float = 1.0) -> MGSolveResult:
+                      coarse_krylov: int = 0, nu_scale: float = 1.0,
+                      matvec_of: Optional[Callable] = None) -> MGSolveResult:
     """op x = b by mixed-precision FGMRES with the multigrid block
     preconditioner: float32 inner solves inside float64 refinement
     rounds, each round's residual through the exact float64 matvec, until
     ‖b − A x‖ ≤ tol·‖b‖ or ``max_rounds``. ``op_c`` (the coarse assembly
-    of the same form) is needed for ``coarse_krylov`` > 0 only."""
+    of the same form) is needed for ``coarse_krylov`` > 0 only.
+
+    ``matvec_of`` (op → matvec, the dof-sharded one of
+    ``parallel/dof_sharding.py``) replaces the float64 refinement matvec
+    only; the float32 Krylov matvec is then the element matvec
+    ``op_matvec``, not the stencil (the JAX package's rule)."""
     b = apply_bc_vector(b, op.bc_dofs, bc_vals)
     M32 = make_block_preconditioner(mg, space_f, op, op_c,
                                     dtype=torch.float32, pre=pre, post=post,
                                     coarse_krylov=coarse_krylov,
                                     nu_scale=nu_scale)
-    mv64 = (op.matvec64 if mg.st_mixed is None
-            else _stencil_or_scatter(mg.st_mixed, op, torch.float64))
-    mv32 = _stencil_or_scatter(mg.st_mixed, op, torch.float32)
+    if matvec_of is not None:
+        mv64 = matvec_of(op)
+        mv32 = op_matvec(op, torch.float32)
+    else:
+        mv64 = (op.matvec64 if mg.st_mixed is None
+                else _stencil_or_scatter(mg.st_mixed, op, torch.float64))
+        mv32 = _stencil_or_scatter(mg.st_mixed, op, torch.float32)
 
     bnorm = float(torch.linalg.norm(b))
     target = tol * max(bnorm, 1e-300)
@@ -398,8 +407,8 @@ def newton_solve_mg(residual_fn: Callable[[torch.Tensor], torch.Tensor],
                     max_iter: int = 50, step_tol: float = 1e-6,
                     restart: int = 60, max_restarts: int = 4,
                     polish: int = 1, pre: int = 2, post: int = 2,
-                    nu_scale: float = 1.0,
-                    coarse_krylov: int = 0) -> NewtonResult:
+                    nu_scale: float = 1.0, coarse_krylov: int = 0,
+                    matvec_of: Optional[Callable] = None) -> NewtonResult:
     """BC-aware Newton with float32 FGMRES steps (the convergence criteria
     of ``newton_solve``).
 
@@ -410,7 +419,9 @@ def newton_solve_mg(residual_fn: Callable[[torch.Tensor], torch.Tensor],
     (θ = 1, ½, ¼, ⅛, the first that lowers ‖r‖, else the full step).
     After the test passes, ``polish`` more steps with a Krylov tolerance
     of min(step_tol, 1e-8) push the residual well below it; they count as
-    iterations. ``krylov_cycles`` lists each step's FGMRES cycles."""
+    iterations. ``krylov_cycles`` lists each step's FGMRES cycles.
+    ``matvec_of`` (op → matvec, in the dtype of its input) replaces the
+    Krylov matvec of every step."""
     is_bc = torch.zeros(w0.shape[0], dtype=torch.bool, device=w0.device)
     is_bc[bc_dofs] = True
     g_full = torch.zeros_like(w0).index_copy(0, bc_dofs, bc_vals)
@@ -428,7 +439,8 @@ def newton_solve_mg(residual_fn: Callable[[torch.Tensor], torch.Tensor],
 
     def step(w, r, rnorm, tol):
         op = operator_fn(w)
-        mv32 = _stencil_or_scatter(mg.st_mixed, op, torch.float32)
+        mv32 = (_stencil_or_scatter(mg.st_mixed, op, torch.float32)
+                if matvec_of is None else matvec_of(op))
         sol = krylov.fgmres(mv32, (-r).to(torch.float32), M=M32,
                             restart=restart, max_restarts=max_restarts,
                             tol=tol)

@@ -11,12 +11,16 @@ modes, on the [0,2]² square and the L-shape, either diagonal).
                        behind a viscosity-continuation ladder below ν = 1
     _forward           NS + primal buoy ODE
     cost               J(u_values, f)
-    adjoint_rhs        ∇u projection + adjoint ODE + point sources
+    adjoint_rhs        ∇u projection + adjoint ODE + point sources (the
+                       buoy-axis part: _adjoint_rhs_body)
     _solve_adjoint_flagged   adjoint RHS + adjoint NS solve
                        (adjoint_operators, solve_adjoint_system)
     reduced_gradient   αf − z on Γ₁
     gd_step            one full GD iteration, with or without the Armijo
-                       backtracking line search
+                       backtracking line search; its hooks ode_impl,
+                       adjoint_rhs_impl and matvec_of are the sharded
+                       steps' (parallel/sharding.py)
+    sum_mask           escaped-buoy count, padding lanes left out
     gd_multi_step      n iterations of gd_step with the LR carried along
     make_differentiable_ns_solver   f_quad → w with the implicit-function
                        VJP, for autograd through the whole forward map
@@ -114,6 +118,10 @@ class OCPProblem:
     mg_pre: int = 2                  # V-cycle pre-smoothing sweeps
     mg_post: int = 2                 # V-cycle post-smoothing sweeps
     mg_coarse_krylov: int = 0        # inner FGMRES on the coarse operator
+    # per-buoy weights (K,): the padding lanes of the sharded steps carry
+    # 0 and drop out of the cost, the adjoint sources and the escape count
+    # (parallel/sharding.py::pad_buoys). None: all ones
+    buoy_weights: Optional[torch.Tensor] = None
     # set-up seconds by part, filled by build_problem
     setup_seconds: dict = dataclasses.field(default_factory=dict)
     # a list to append one record per NS and adjoint solve to (iterations,
@@ -471,7 +479,8 @@ def _float32_tables(tables):
         and getattr(tables, f.name).is_floating_point()})
 
 
-def _solve_ns(prob: OCPProblem, f_quad: torch.Tensor) -> NewtonResult:
+def _solve_ns(prob: OCPProblem, f_quad: torch.Tensor,
+              matvec_of=None) -> NewtonResult:
     """Primal NS Newton solve from w = 0: dense steps (chord on the
     Stokes factor with ``newton_reuse_lu``, its sweeps in float32 with
     ``newton_chord_f32``), or on the multigrid path float32 FGMRES steps
@@ -486,7 +495,9 @@ def _solve_ns(prob: OCPProblem, f_quad: torch.Tensor) -> NewtonResult:
     factor belongs to w = 0); multigrid rungs run on the hierarchy frozen
     at ν with ``nu_scale`` = ν_k/ν. Each rung appends an "ns_rung" record
     to ``solve_log``. Only the final solve's float64 test decides the
-    accuracy of the result."""
+    accuracy of the result. ``matvec_of`` (op → matvec) replaces the
+    multigrid Krylov matvec (the dof-sharded one of
+    ``parallel/dof_sharding.py``); the dense path ignores it."""
     def residual_at(nu):
         return lambda w: assemble.ns_residual(prob.space, prob.bq, w,
                                               f_quad, nu)
@@ -514,7 +525,7 @@ def _solve_ns(prob: OCPProblem, f_quad: torch.Tensor) -> NewtonResult:
                 residual_at(nu), operator_at(nu), coarse_at(nu), prob.mg,
                 prob.space, w0, prob.bc_dofs, prob.bc_vals,
                 pre=prob.mg_pre, post=prob.mg_post, nu_scale=nu / prob.nu,
-                coarse_krylov=prob.mg_coarse_krylov)
+                coarse_krylov=prob.mg_coarse_krylov, matvec_of=matvec_of)
     else:
         def solve(nu, w0):
             return newton_solve(residual_at(nu), operator_at(nu), w0,
@@ -602,11 +613,14 @@ def _primal_ode(prob: OCPProblem, u: torch.Tensor):
                                   else None))
 
 
-def _forward(prob: OCPProblem, f_quad: torch.Tensor) -> ForwardState:
-    """NS solve + primal buoy ODE."""
-    res = _solve_ns(prob, f_quad)
+def _forward(prob: OCPProblem, f_quad: torch.Tensor, ode_impl=None,
+             matvec_of=None) -> ForwardState:
+    """NS solve + primal buoy ODE. ``ode_impl`` replaces the ODE stage
+    (the buoy-sharded ``_primal_ode`` of ``parallel/sharding.py``),
+    ``matvec_of`` the multigrid Krylov matvec."""
+    res = _solve_ns(prob, f_quad, matvec_of=matvec_of)
     u, _ = prob.space.split(res.w)
-    ode = _primal_ode(prob, u)
+    ode = (ode_impl or _primal_ode)(prob, u)
     return ForwardState(res.w, ode.x, ode.u_values, ode.mask, res,
                         ode.x_raw, ode.kfail)
 
@@ -615,8 +629,11 @@ def _forward(prob: OCPProblem, f_quad: torch.Tensor) -> ForwardState:
 def cost(prob: OCPProblem, u_values: torch.Tensor,
          f_quad: torch.Tensor) -> torch.Tensor:
     """J = 0.5 Σ_k Σ_t h‖u − u_d‖² + α/2 ∫_{Γ₁}|f|² ds (masked buoys
-    still contribute their partial u_values, as in the reference)."""
+    still contribute their partial u_values, as in the reference).
+    ``buoy_weights`` scale the tracking term per buoy."""
     track = prob.h * torch.sum((u_values - prob.u_d) ** 2, dim=-1)
+    if prob.buoy_weights is not None:
+        track = track * prob.buoy_weights[:, None]
     part_a = 0.5 * torch.sum(track)
     part_b = 0.5 * prob.alpha * torch.sum(
         prob.bq.weights * torch.sum(f_quad ** 2, dim=-1))
@@ -660,7 +677,10 @@ def _source_points(prob: OCPProblem, x: torch.Tensor, mask: torch.Tensor,
     m = mask[:, None]
     x = torch.where(m[..., None],
                     torch.where(pre[..., None], x_raw, prob.center), x)
-    return x, torch.where(m, pre | quirk, True)
+    active_t = torch.where(m, pre | quirk, True)
+    if prob.buoy_weights is not None:
+        active_t = active_t & (prob.buoy_weights[:, None] > 0)
+    return x, active_t
 
 
 def _adjoint_sources(prob: OCPProblem, u: torch.Tensor, mu: torch.Tensor,
@@ -675,14 +695,33 @@ def _adjoint_sources(prob: OCPProblem, u: torch.Tensor, mu: torch.Tensor,
                             u_values=u_values)
 
 
-def adjoint_rhs(prob: OCPProblem, fwd: ForwardState) -> torch.Tensor:
-    """∇u projection + adjoint ODE + point-source RHS: the adjoint solve's
-    load vector b."""
-    u, _ = prob.space.split(fwd.w)
-    grad_u = prob.projector.project(prob.space, u)
-    state = (fwd.x, fwd.u_values, fwd.mask, fwd.x_raw, fwd.kfail)
+def _adjoint_rhs_body(prob: OCPProblem, u: torch.Tensor,
+                      grad_u: torch.Tensor, x: torch.Tensor,
+                      u_values: torch.Tensor, mask: torch.Tensor,
+                      x_raw: torch.Tensor, kfail: torch.Tensor
+                      ) -> torch.Tensor:
+    """Adjoint ODE + point-source RHS over explicit buoy-axis arrays: the
+    stage the buoy-sharded step runs on each rank's lanes. Lanes of
+    weight 0 (``buoy_weights``) are dropped like escaped buoys in
+    "reference" mode and carry no source in "consistent" mode."""
+    if prob.buoy_weights is not None and prob.adjoint_mode != "consistent":
+        mask = mask | (prob.buoy_weights == 0)
+    state = (x, u_values, mask, x_raw, kfail)
     mu = _adjoint_mu(prob, grad_u, *state)
     return _adjoint_sources(prob, u, mu, *state)
+
+
+def adjoint_rhs(prob: OCPProblem, fwd: ForwardState,
+                adjoint_rhs_impl=None) -> torch.Tensor:
+    """∇u projection + adjoint ODE + point-source RHS: the adjoint solve's
+    load vector b. ``adjoint_rhs_impl`` replaces the buoy-axis stage
+    ``_adjoint_rhs_body`` (the buoy-sharded one of
+    ``parallel/sharding.py``)."""
+    u, _ = prob.space.split(fwd.w)
+    grad_u = prob.projector.project(prob.space, u)
+    return (adjoint_rhs_impl or _adjoint_rhs_body)(
+        prob, u, grad_u, fwd.x, fwd.u_values, fwd.mask, fwd.x_raw,
+        fwd.kfail)
 
 
 def adjoint_operators(prob: OCPProblem, w: torch.Tensor):
@@ -699,13 +738,14 @@ def adjoint_operators(prob: OCPProblem, w: torch.Tensor):
 
 
 def solve_adjoint_system(prob: OCPProblem, fwd: ForwardState,
-                         b: torch.Tensor, op, op_c=None
+                         b: torch.Tensor, op, op_c=None, matvec_of=None
                          ) -> Tuple[torch.Tensor, bool]:
     """The adjoint NS solve op z = b on the problem's linear solver:
     (z, converged). The dense paths are accurate unconditionally (the
     reuse path falls back to a fresh factorization), so there the flag is
     True; on the multigrid path it says whether the float64 refinement
-    rounds reached 1e-11·‖b‖."""
+    rounds reached 1e-11·‖b‖. ``matvec_of`` replaces the multigrid
+    path's float64 refinement matvec (``solve_operator_mg``)."""
     if prob.linear_solver == "mg":
         # the adjoint Laplacian has unit viscosity (the reference's form)
         # while the frozen hierarchy is assembled at ν: the rung scaling
@@ -713,7 +753,8 @@ def solve_adjoint_system(prob: OCPProblem, fwd: ForwardState,
         sol = mg_mod.solve_operator_mg(
             op, op_c, prob.mg, prob.space, b, prob.bc_vals,
             pre=prob.mg_pre, post=prob.mg_post,
-            coarse_krylov=prob.mg_coarse_krylov, nu_scale=1.0 / prob.nu)
+            coarse_krylov=prob.mg_coarse_krylov, nu_scale=1.0 / prob.nu,
+            matvec_of=matvec_of)
         _log_solve(prob, solve="adjoint", rounds=sol.rounds,
                    krylov_cycles=sol.iterations,
                    relative_residual=sol.residual_norm / max(sol.b_norm,
@@ -732,13 +773,21 @@ def solve_adjoint_system(prob: OCPProblem, fwd: ForwardState,
                           refine_iters=prob.refine_iters), True
 
 
-def _solve_adjoint_flagged(prob: OCPProblem, fwd: ForwardState
+def _solve_adjoint_flagged(prob: OCPProblem, fwd: ForwardState,
+                           adjoint_rhs_impl=None, matvec_of=None
                            ) -> Tuple[torch.Tensor, bool]:
     """Adjoint RHS + adjoint NS solve: (mixed adjoint state z, converged)
-    (``solve_adjoint_system``)."""
-    b = adjoint_rhs(prob, fwd)
+    (``adjoint_rhs``, ``solve_adjoint_system``)."""
+    b = adjoint_rhs(prob, fwd, adjoint_rhs_impl=adjoint_rhs_impl)
     op, op_c = adjoint_operators(prob, fwd.w)
-    return solve_adjoint_system(prob, fwd, b, op, op_c)
+    return solve_adjoint_system(prob, fwd, b, op, op_c, matvec_of=matvec_of)
+
+
+def sum_mask(prob: OCPProblem, mask: torch.Tensor) -> torch.Tensor:
+    """Escaped-buoy count; lanes of weight 0 never count."""
+    if prob.buoy_weights is None:
+        return torch.sum(mask)
+    return torch.sum(mask * prob.buoy_weights)
 
 
 def reduced_gradient(prob: OCPProblem, f: Control,
@@ -751,7 +800,8 @@ def reduced_gradient(prob: OCPProblem, f: Control,
 
 def line_search(prob: OCPProblem, f: Control, g: Control, fwd: ForwardState,
                 lr: float, tau: float = 0.5, c_armijo: float = 1e-4,
-                lr_min: float = 1e-6, max_ls_iters: int = 80):
+                lr_min: float = 1e-6, max_ls_iters: int = 80, ode_impl=None,
+                matvec_of=None):
     """Armijo backtracking along df = −g from ``lr``, a host loop over
     forward solves. Returns (lr, probes, gradj).
 
@@ -759,7 +809,8 @@ def line_search(prob: OCPProblem, f: Control, g: Control, fwd: ForwardState,
     gradj = ⟨g, df⟩_Γ₁; else lr ← max(τ·lr, lr_min). The search stops
     after the one failed probe at the floor (a further probe would be the
     identical computation) and after ``max_ls_iters`` decrements.
-    ``probes`` counts the accepting (or last) probe too."""
+    ``probes`` counts the accepting (or last) probe too. A probe's
+    forward runs with ``ode_impl`` and ``matvec_of`` (``_forward``)."""
     df = Control(-g.quad, -g.p2)
     gradj = float(ctrl_mod.boundary_inner(prob.bq, g, df))
     cond_thresh = -c_armijo * gradj
@@ -767,7 +818,8 @@ def line_search(prob: OCPProblem, f: Control, g: Control, fwd: ForwardState,
     it = 0
     while True:
         f_ls = f.quad + lr * df.quad
-        j_new = float(cost(prob, _forward(prob, f_ls).u_values, f_ls))
+        fwd_ls = _forward(prob, f_ls, ode_impl=ode_impl, matvec_of=matvec_of)
+        j_new = float(cost(prob, fwd_ls.u_values, f_ls))
         accept = j_old - j_new >= lr * cond_thresh
         if accept or not (it < max_ls_iters and lr > lr_min):
             return lr, it + 1, gradj
@@ -778,22 +830,34 @@ def line_search(prob: OCPProblem, f: Control, g: Control, fwd: ForwardState,
 def gd_step(prob: OCPProblem, f: Control, lr,
             use_line_search: bool = False, tau: float = 0.5,
             c_armijo: float = 1e-4, lr_min: float = 1e-6,
-            max_ls_iters: int = 80) -> GDStepResult:
+            max_ls_iters: int = 80, ode_impl=None, adjoint_rhs_impl=None,
+            matvec_of=None) -> GDStepResult:
     """One full gradient-descent iteration, with the Armijo backtracking
     line search (``line_search``) when ``use_line_search``.
 
     As in the reference, the learning rate is the caller's and is not
     reset (pass the returned one back in), the accepted line-search state
     is discarded, and J is recorded with the OLD u_values and the NEW
-    control."""
+    control.
+
+    The three hooks are the sharded steps' (``parallel/sharding.py``):
+    ``ode_impl`` runs the primal ODE on each rank's buoys,
+    ``adjoint_rhs_impl`` the adjoint ODE and point sources, and
+    ``matvec_of`` shards the multigrid matvec over cells; one line
+    search and update serve every layout. Unset, the step is the
+    single-device one."""
     lr = float(lr)
-    fwd = _forward(prob, f.quad)
-    z, adj_ok = _solve_adjoint_flagged(prob, fwd)
+    fwd = _forward(prob, f.quad, ode_impl=ode_impl, matvec_of=matvec_of)
+    z, adj_ok = _solve_adjoint_flagged(prob, fwd,
+                                       adjoint_rhs_impl=adjoint_rhs_impl,
+                                       matvec_of=matvec_of)
     g = reduced_gradient(prob, f, z)
     gradj, inner = 0.0, 0
     if use_line_search:
         lr, inner, gradj = line_search(prob, f, g, fwd, lr, tau, c_armijo,
-                                       lr_min, max_ls_iters)
+                                       lr_min, max_ls_iters,
+                                       ode_impl=ode_impl,
+                                       matvec_of=matvec_of)
     f_new = f.axpy(-lr, g)
     j_rec = cost(prob, fwd.u_values, f_new.quad)
     u, _ = prob.space.split(fwd.w)

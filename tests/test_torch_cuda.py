@@ -668,3 +668,31 @@ def test_float32_chord_on_card(dev):
         assert gpu.fwd.newton.iterations == cpu.fwd.newton.iterations
         assert abs(float(gpu.J) / float(cpu.J) - 1) < 1e-9
         assert _rel(gpu.f_new.quad, cpu.f_new.quad) < 1e-8
+
+
+def test_sync_waits_for_the_card(dev):
+    from ocean_torch.utils import Timer, sync
+    a = torch.ones(4096, 4096, device=dev)
+    with Timer() as t:
+        b = [a @ a for _ in range(4)]
+        sync({"b": b, "host": torch.ones(2)})
+    assert torch.cuda.current_stream(dev).query()
+    assert t.elapsed > 0.0
+
+
+def test_sharded_step_nccl_one_rank(dev):
+    """The buoy-sharded step on one nccl rank at the CPU test's size
+    (``tests/test_torch_parallel.py``) against ``gd_step`` on the card:
+    J within 1e-12 relative, f_new within 1e-12, the same LR and escape
+    count."""
+    import torch_parallel_cases as cases
+    from ocean_torch import system
+    from ocean_torch.parallel import launch
+    got, = launch.spawn(cases.rank_default_step, 1, "nccl", "cuda")
+    prob, f, lr, _ = cases.cases("cuda")["default"]
+    ref = system.gd_step(prob, f, lr)
+    assert not got["diverged"] and not ref.diverged
+    assert abs(got["J"] - float(ref.J)) <= 1e-12 * abs(float(ref.J))
+    assert float((got["f_quad"] - ref.f_new.quad.cpu()).abs().max()) <= 1e-12
+    assert got["lr"] == ref.lr
+    assert got["mask_count"] == float(ref.fwd.mask.sum())

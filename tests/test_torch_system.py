@@ -85,6 +85,7 @@ def test_initial_control_matches_jax(steps):
 
 def test_entry_points_need_cuda_unless_cpu(monkeypatch, tmp_path):
     from ocean_torch import resolve_device
+    from ocean_torch.parallel import launch
     from ocean_torch.pipelines import (initial_control, limits,
                                        ns_gradcheck, stokes_gradcheck,
                                        ud_construction)
@@ -100,7 +101,8 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch, tmp_path):
              lambda: stokes_gradcheck.build(nx=2),
              lambda: ns_gradcheck.build(nx=2, K=2),
              lambda: initial_control.run(small, write_artifacts=False),
-             lambda: initial_control.run_all_cases_fused(small)]
+             lambda: initial_control.run_all_cases_fused(small),
+             lambda: launch.spawn(print, 1)]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
@@ -187,7 +189,10 @@ def test_import_leaves_jax_out():
             "ocean_torch.pipelines.stokes_gradcheck, "
             "ocean_torch.pipelines.ns_gradcheck, "
             "ocean_torch.pipelines.initial_control, "
-            "ocean_torch.opt.ensemble; "
+            "ocean_torch.opt.ensemble, ocean_torch.parallel, "
+            "ocean_torch.parallel.launch, ocean_torch.gen1, "
+            "ocean_torch.gen1.main, ocean_torch.io.torch_ckpt, "
+            "ocean_torch.utils; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m.startswith('ocean_jax')]; "
             "print(bad); sys.exit(1 if bad else 0)")
