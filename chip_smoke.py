@@ -180,15 +180,32 @@ Phases, in order; any failure exits non-zero before the last line:
     obstacle (dense LU): finite and driven. Prints
     ``sharded_gd_iteration_seconds_10000_buoys_{nccl1,gloo3}``,
     ``sharded2d_hires_nx64_gd_iteration_seconds_{gloo2,nccl1}`` and
-    ``gen1_run_seconds_nx32``.
+    ``gen1_run_seconds_nx32``;
+21. path 12, the package's surface and loaders. 12a, in path 11's nccl
+    rank: two Armijo iterations of ``system.gd_multi_step`` on path 1's
+    problem with its three hooks on the world group (buoy-sharded ODE and
+    adjoint right-hand side, cell-sharded matvec), counts set to 0 before
+    and read after (primal ODE = forwards, adjoint ODE and point sources
+    = 2), beside two iterations of the single-device ``gd_multi_step``:
+    J, LR, probes, escape counts and the final control equal bit for bit.
+    12b: the f_new of path 1's Armijo step through
+    ``io.torch_ckpt.save_control`` and the default ``load_control``: on
+    the card, equal, and a GD step from it finite and equal to one from
+    the control in memory. 12c: ``make_space``,
+    ``make_boundary_quad`` and the gen-1 ``NavierStokesSolver`` without a
+    device land on the card; the graded pipe's Stokes state equals 11d's.
+    12d: ``import ocean_torch`` in a fresh interpreter imports no jax,
+    matplotlib or h5py, leaves CUDA uninitialized, and
+    ``ocean_torch.OCPConfig`` resolves.
 Phase 4 also runs the hard inputs of the "left" diagonal and the pipes.
 Path 3 runs with ``dense_apply="inverse"`` (``limits.run``'s fast paths,
 as in the JAX package).
 
 The line before the last is the kernels' JSON record, one entry per
 kernel and geometry (``geometry``), with the launches of paths 1–2 and
-``launches_path3``, ``_path4``, ``_path8`` and ``_path11`` (the counted
-sharded steps of 11a and, for the segment sum, 11b); the last line is
+``launches_path3``, ``_path4``, ``_path8``, ``_path11`` (the counted
+sharded steps of 11a and, for the segment sum, 11b) and ``_path12`` (12a's
+counted ``gd_multi_step``); the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
@@ -317,7 +334,7 @@ def stage_seconds(prob, f, lr) -> dict:
         out[name] = time.perf_counter() - t0
         return val
 
-    newton = timed("ns_newton", lambda: system._solve_ns(prob, f.quad))
+    newton = timed("ns_newton", lambda: system.solve_ns(prob, f.quad))
     u, _ = prob.space.split(newton.w)
     ode = timed("primal_ode", lambda: system._primal_ode(prob, u))
     grad_u = timed("gradu_projection",
@@ -1432,7 +1449,7 @@ def differentiable_ns_check(prob) -> None:
     directional = float(torch.sum(g * df.quad))
 
     def cw(q):
-        return float(torch.dot(c, system._solve_ns(prob, q).w))
+        return float(torch.dot(c, system.solve_ns(prob, q).w))
 
     errs = []
     for h in (1e-3, 1e-4, 1e-5):
@@ -1914,7 +1931,7 @@ def path9_hires(card: str) -> list:
     f0 = system.initial_control(prob, case=4)
     res, counts192 = mg_driver_run("path 9c (Nx=192)", cfg, prob, f0, card)
     j_f0 = float(system.cost(prob, res.last_fwd.u_values, f0.quad))
-    j_acc = float(system.cost(prob, system._forward(prob, res.f.quad)
+    j_acc = float(system.cost(prob, system.forward(prob, res.f.quad)
                               .u_values, res.f.quad))
     check(res.lr > cfg.LR_MIN and j_acc < j_f0,
           f"path 9c: Armijo step not accepted: J {j_acc} at LR {res.lr}, "
@@ -2044,7 +2061,7 @@ def path10a_golden(tmp: str, card: str):
                                   newton_reuse_lu=False, fac0=None,
                                   solve_log=[])
     f0 = system.initial_control(vanilla, case=0)
-    r0 = system._solve_ns(vanilla, f0.quad)
+    r0 = system.solve_ns(vanilla, f0.quad)
     check(not r0.converged and r0.residual_norm > 1.0,
           f"path 10a: vanilla Newton converged={r0.converged}, residual "
           f"{r0.residual_norm}")
@@ -2053,7 +2070,7 @@ def path10a_golden(tmp: str, card: str):
           f"{r0.iterations} iterations", flush=True)
     # kernels 1–3 on the strong flow of the initial control, where buoys
     # escape
-    fwd0 = system._forward(prob, f0.quad)
+    fwd0 = system.forward(prob, f0.quad)
     escaped = int(fwd0.mask.sum())
     check(escaped >= 1, "path 10a: no buoy escapes at the initial control")
     print(f"path 10a: {escaped} of 10 buoys escape at the initial control",
@@ -2120,7 +2137,7 @@ def path10b_hires(card: str):
     prob_d = dataclasses.replace(system.build_problem(
         dataclasses.replace(cfg, linear_solver="dense"), u_d=u_d, x0=x0,
         device=dev), solve_log=[], fac0=None)
-    fwd_d = system._forward(prob_d, f0.quad)
+    fwd_d = system.forward(prob_d, f0.quad)
     torch.cuda.synchronize()
     j_d = float(system.cost(prob_d, fwd_d.u_values, f0.quad))
     check(all(r["converged"] for r in prob_d.solve_log),
@@ -2237,7 +2254,7 @@ def shard_kernels(prob_p, f, group, label: str) -> dict:
     from ocean_torch.ops.scatter import pow2_scale
     from ocean_torch.parallel.sharding import make_buoy_ode_impl
 
-    fwd = system._forward(prob_p, f.quad,
+    fwd = system.forward(prob_p, f.quad,
                           ode_impl=make_buoy_ode_impl(group))
     ln = rank_lanes(prob_p.K, group)
     w = prob_p.buoy_weights[ln]
@@ -2401,9 +2418,10 @@ def control_on(quad, p2, device):
 
 
 def path11_nccl_rank(rank, world, device, cfg, f_parts, lr, f2_parts):
-    """11a and 11c on one nccl rank: the step on the world group (path 1,
-    each timed step beside path 1's single-device ``gd_step`` in this
-    process, then Armijo), the 2-D step on a 1 × 1 layout, and path 9a's
+    """11a, 12a and 11c on one nccl rank: the step on the world group
+    (path 1, each timed step beside path 1's single-device ``gd_step`` in
+    this process, then Armijo), ``gd_multi_step`` with the hooks beside
+    the single-device one, the 2-D step on a 1 × 1 layout, and path 9a's
     single-device mg step as the 2-D reference."""
     from ocean_torch import system
     from ocean_torch.parallel import make_2d_groups
@@ -2412,6 +2430,7 @@ def path11_nccl_rank(rank, world, device, cfg, f_parts, lr, f2_parts):
     f = control_on(*f_parts, device)
     out = {"1d": path11_1d(prob, f, lr, None, "11a (nccl, 1 rank)", PATH1,
                            beside=lambda: system.gd_step(prob, f, lr))}
+    out["multi"] = path12_multi(prob, f, lr, "12a (nccl, 1 rank)")
     del prob
     res, prob9, f9 = path11_2d(groups, "11c (nccl, 1 × 1)")
     ref = system.gd_step(prob9, f9, 1.0)
@@ -2466,10 +2485,11 @@ def compare_step(label: str, got: dict, ref, rel_j: float, tol_f: float):
     return dj, df
 
 
-def path11_sharded(cfg, prob, f, lr, res1, f2, res2, card: str) -> dict:
+def path11_sharded(cfg, prob, f, lr, res1, f2, res2, card: str) -> tuple:
     """Path 11a–c: launch the ranks with path 1's configuration, control
     and LR and path 2's control, hold their steps to the single-device
-    ones. Returns the launch counts of the counted sharded steps."""
+    ones. Returns the launch counts of the counted sharded steps and what
+    12a measured in the nccl rank."""
     import statistics
     import torch
     from ocean_torch import system
@@ -2548,21 +2568,45 @@ def path11_sharded(cfg, prob, f, lr, res1, f2, res2, card: str) -> dict:
     print("path 11: gloo stages CUDA collectives through the host, and its "
           "ranks share one card: its times say what sharing one card costs, "
           "not what a user of several cards pays", flush=True)
-    return counts
+    return counts, runs["nccl1"][0]["multi"]
 
 
-def path11_gen1(card: str) -> None:
-    """11d: the gen-1 driver at the reference's size on the card (J
-    descends, the centred FD table closes below 0.2 of gradj, the JAX
-    test's level), then the gen-1 Stokes solve on path 6's graded pipe."""
+def gen1_pipe_solver(**device):
+    """The gen-1 Stokes problem on path 6's graded pipe with its obstacle:
+    (space, NavierStokesSolver, control q). ``device`` goes to
+    ``make_space``, ``make_boundary_quad`` and ``NavierStokesSolver``;
+    without it each takes its default."""
     import numpy as np
-    import torch
     from ocean_torch import control as ctrl_mod
-    from ocean_torch.fem import (assemble, make_space, make_boundary_quad,
+    from ocean_torch.fem import (make_space, make_boundary_quad,
                                  dirichlet_velocity_bc)
     from ocean_torch.gen1 import NavierStokesSolver
-    from ocean_torch.gen1 import main as gen1_main
     from ocean_torch.mesh import mark_boundary_facets, structured
+
+    eps = 1e-12
+    mesh, _ = structured.pipe_mesh(obstacle=True, graded=True)
+    space = make_space(mesh, **device)
+    bq = make_boundary_quad(mesh, mark_boundary_facets(
+        mesh, lambda x: np.abs(x[:, 0]) < eps), tag=1, **device)
+    check(space.device.type == bq.points.device.type == "cuda",
+          f"gen-1 pipe: space on {space.device}, boundary quadrature on "
+          f"{bq.points.device}")
+    bc = dirichlet_velocity_bc(mesh, space, lambda x: x[:, 0] > eps)
+    ns = NavierStokesSolver(space, bq, *bc, alpha=1e-2, **device)
+    q = ctrl_mod.from_expression(space, bq, lambda x: np.stack(
+        [x[:, 1] * (2 - x[:, 1]) / 4, np.zeros(len(x))], axis=1))
+    return space, ns, q
+
+
+def path11_gen1(card: str):
+    """11d: the gen-1 driver at the reference's size on the card (J
+    descends, the centred FD table closes below 0.2 of gradj, the JAX
+    test's level), then the gen-1 Stokes solve on path 6's graded pipe.
+    Returns that solve's state."""
+    import numpy as np
+    import torch
+    from ocean_torch.fem import assemble
+    from ocean_torch.gen1 import main as gen1_main
 
     t0 = time.perf_counter()
     out = gen1_main.run(nx=32, K=5, num_steps=3, grad_check=True,
@@ -2580,15 +2624,7 @@ def path11_gen1(card: str) -> None:
           f"{best!r}", flush=True)
     print(f"gen1_run_seconds_nx32: {secs!r} (3 iterations and the 12 FD "
           f"forward solves) on {card}", flush=True)
-    eps = 1e-12
-    mesh, _ = structured.pipe_mesh(obstacle=True, graded=True)
-    space = make_space(mesh, "cuda")
-    bq = make_boundary_quad(mesh, mark_boundary_facets(
-        mesh, lambda x: np.abs(x[:, 0]) < eps), tag=1, device="cuda")
-    bc = dirichlet_velocity_bc(mesh, space, lambda x: x[:, 0] > eps)
-    ns = NavierStokesSolver(space, bq, *bc, alpha=1e-2, device="cuda")
-    q = ctrl_mod.from_expression(space, bq, lambda x: np.stack(
-        [x[:, 1] * (2 - x[:, 1]) / 4, np.zeros(len(x))], axis=1))
+    space, ns, q = gen1_pipe_solver(device="cuda")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     w = ns.solve_stokes_step(q)
@@ -2602,6 +2638,161 @@ def path11_gen1(card: str) -> None:
           f"‖div u‖ {float(assemble.divergence_l2(space, u))!r} in "
           f"{secs:.2f} s, peak {torch.cuda.max_memory_allocated() / 2**30:.1f}"
           f" GiB on {card}", flush=True)
+    return w
+
+
+# --- path 12: the surface and the loaders ----------------------------------
+#
+# 12a runs in path 11's nccl rank (``path11_nccl_rank``); 12b–d in the main
+# process after path 11.
+
+PATH12_STEPS = 2
+
+
+def path12_multi(prob, f, lr, label: str) -> dict:
+    """12a in a rank: ``PATH12_STEPS`` Armijo iterations of
+    ``system.gd_multi_step`` with its three hooks on the world group (the
+    buoy-sharded primal ODE and adjoint right-hand side, the cell-sharded
+    matvec, which the dense solves of path 1 do not call), counts set to 0
+    before and read after, beside as many iterations of the single-device
+    ``gd_multi_step`` in this rank: the trajectories (J, LR, probes, escape
+    counts, ‖div u‖) and the final control and LR equal bit for bit."""
+    import torch
+    import torch.distributed as dist
+    from ocean_torch import kernels, system
+    from ocean_torch.parallel import pad_problem
+    from ocean_torch.parallel.dof_sharding import make_matvec_of
+    from ocean_torch.parallel.sharding import (make_buoy_adjoint_rhs_impl,
+                                               make_buoy_ode_impl)
+    prob_p = pad_problem(prob, dist.get_world_size())
+    hooks = dict(ode_impl=make_buoy_ode_impl(),
+                 adjoint_rhs_impl=make_buoy_adjoint_rhs_impl(),
+                 matvec_of=make_matvec_of())
+
+    def timed(p, **kw):
+        t0 = time.perf_counter()
+        out = system.gd_multi_step(p, f, lr, PATH12_STEPS,
+                                   use_line_search=True, max_ls_iters=80,
+                                   **kw)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    (f_ref, lr_ref, ref), secs_ref = timed(prob)
+    kernels.reset_launch_counts()
+    (f_got, lr_got, got), secs = timed(prob_p, **hooks)
+    counts = kernels.launch_counts()
+    # a second pair in the other order: the host's spread, not the hooks
+    (_, _, again), secs_again = timed(prob_p, **hooks)
+    (_, _, ref_again), secs_ref_again = timed(prob)
+    check(torch.equal(again.J, got.J) and torch.equal(ref_again.J, ref.J),
+          f"{label}: J moved between calls at one control")
+    forwards = PATH12_STEPS + int(got.inner_iterations.sum())
+    check(counts["primal_ode"] == forwards
+          and counts["adjoint_ode"] == counts["point_sources"] == PATH12_STEPS
+          and all(counts[k] == 0 for k in counts if k not in PATH1),
+          f"{label}: launches {counts}, expected {forwards} primal ODE and "
+          f"{PATH12_STEPS} adjoint ODE and point-source launches")
+    check(not bool(got.diverged.any()) and not bool(ref.diverged.any()),
+          f"{label}: diverged")
+    same = [k for k in ref._fields
+            if not torch.equal(getattr(got, k), getattr(ref, k))]
+    check(not same and lr_got == lr_ref
+          and torch.equal(f_got.quad, f_ref.quad)
+          and torch.equal(f_got.p2, f_ref.p2),
+          f"{label}: gd_multi_step with the hooks differs from the "
+          f"single-device one in {same or 'the final control or LR'}")
+    return {"J": got.J.tolist(), "lr": got.lr.tolist(),
+            "probes": got.inner_iterations.tolist(),
+            "mask_count": got.mask_count.tolist(), "K_pad": prob_p.K,
+            "launches": counts, "seconds": [secs, secs_again],
+            "seconds_single": [secs_ref, secs_ref_again]}
+
+
+def path12_surface(prob, f, lr, multi: dict, w11, card: str) -> None:
+    """12a's results from path 11's nccl rank; 12b: the f_new of path 1's
+    Armijo step through ``io.torch_ckpt`` and back with the loader's
+    default device, and a GD step from it equal to one from the control in
+    memory (path 1's own f_new, at LR 5, lies outside the Newton solve's
+    basin: the next step's J is inf); 12c: the space
+    builders and the gen-1 solver without a device, the Stokes solve equal
+    to 11d's; 12d: ``import ocean_torch`` in a fresh interpreter."""
+    import os
+    import tempfile
+    import torch
+    from ocean_torch import system
+    from ocean_torch.io import torch_ckpt
+
+    print(f"path 12a (nccl, 1 rank): gd_multi_step with the three hooks, "
+          f"{PATH12_STEPS} Armijo iterations on {multi['K_pad']} lanes, "
+          f"equal bit for bit to the single-device call: J {multi['J']!r} "
+          f"LR {multi['lr']!r} probes {multi['probes']} escaped "
+          f"{multi['mask_count']} launches {multi['launches']}; seconds "
+          f"{multi['seconds']!r} (single-device {multi['seconds_single']!r};"
+          f" the pairs single, sharded, sharded, single) on {card}",
+          flush=True)
+
+    t0 = time.perf_counter()
+    step = system.gd_step(prob, f, lr, use_line_search=True,
+                          max_ls_iters=80)
+    saved = step.f_new
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "q.pt")
+        torch_ckpt.save_control(path, saved, step.lr, 1)
+        loaded, lr_l, it_l = torch_ckpt.load_control(path)
+    check(loaded.quad.device.type == loaded.p2.device.type == "cuda",
+          f"12b: the loaded control is on {loaded.quad.device}")
+    check(torch.equal(loaded.quad, saved.quad)
+          and torch.equal(loaded.p2, saved.p2)
+          and (lr_l, it_l) == (step.lr, 1),
+          "12b: the checkpoint does not give back the saved control")
+    a = system.gd_step(prob, saved, step.lr)
+    b = system.gd_step(prob, loaded, lr_l)
+    check(not a.diverged and bool(torch.isfinite(a.J)),
+          f"12b: the step from the saved control diverged (J={float(a.J)})")
+    check(torch.equal(a.J, b.J) and a.lr == b.lr and not b.diverged
+          and torch.equal(a.f_new.quad, b.f_new.quad)
+          and torch.equal(a.f_new.p2, b.f_new.p2),
+          "12b: the GD step from the loaded control differs")
+    torch.cuda.synchronize()
+    print(f"path 12b: the Armijo step's f_new (LR {step.lr!r}) saved and "
+          f"loaded back on {loaded.quad.device}, the GD step from it equal "
+          f"bit for bit (J={float(b.J)!r}); {time.perf_counter() - t0:.2f} "
+          "s", flush=True)
+
+    t0 = time.perf_counter()
+    space, ns, q = gen1_pipe_solver()
+    check(ns.device.type == "cuda", f"12c: gen-1 solver on {ns.device}")
+    w = ns.solve_stokes_step(q)
+    check(torch.equal(w, w11), "12c: the gen-1 Stokes solve on the default "
+          "device differs from 11d's")
+    del ns
+    torch.cuda.synchronize()
+    print(f"path 12c: make_space, make_boundary_quad and NavierStokesSolver "
+          f"without a device on {space.device}, the graded pipe's Stokes "
+          f"state equal to 11d's; {time.perf_counter() - t0:.2f} s",
+          flush=True)
+
+    t0 = time.perf_counter()
+    code = ("import json, sys, torch, ocean_torch; "
+            "from ocean_torch import OCPConfig, load_parameters; "
+            "from ocean_torch.io import RunDirectory; "
+            "from ocean_torch.ops import factorize, stencil_matvec; "
+            "from ocean_torch.opt import grad_check; "
+            "print(json.dumps({'bad': sorted(m for m in sys.modules if "
+            "m.split('.')[0] in ('jax', 'ocean_jax', 'matplotlib', "
+            "'h5py')), 'cuda': torch.cuda.is_initialized(), "
+            "'config': ocean_torch.OCPConfig.__module__}))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         capture_output=True, text=True, timeout=300)
+    check(out.returncode == 0, f"12d: import ocean_torch failed: "
+          f"{out.stderr[-2000:]}")
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    check(got == {"bad": [], "cuda": False, "config": "ocean_torch.config"},
+          f"12d: import ocean_torch gave {got}")
+    print(f"path 12d: import ocean_torch in a fresh interpreter: no jax, "
+          f"matplotlib or h5py, CUDA not initialized, OCPConfig from "
+          f"ocean_torch.config; {time.perf_counter() - t0:.2f} s",
+          flush=True)
 
 
 def main() -> int:
@@ -2739,7 +2930,7 @@ def main() -> int:
     # stronger until it ejects a buoy
     for push in (3.0, 4.0, 6.0):
         f2 = ctrl_mod.constant(prob2.space, prob2.bq, [push, 0.0])
-        escaped = int(system._forward(prob2, f2.quad).mask.sum())
+        escaped = int(system.forward(prob2, f2.quad).mask.sum())
         if escaped:
             break
     print(f"path 2 control: constant [{push}, 0.0] ejects {escaped} of "
@@ -2951,8 +3142,14 @@ def main() -> int:
     path10c_float32(cfg, u_d, x0, f, lr, res1, card)
 
     # --- 20. path 11: the sharded steps and gen-1 ---------------------------
-    counts_p11 = path11_sharded(cfg, prob, f, lr, res1, f2, res2, card)
-    path11_gen1(card)
+    counts_p11, multi = path11_sharded(cfg, prob, f, lr, res1, f2, res2, card)
+    w11 = path11_gen1(card)
+
+    # --- 21. path 12: the surface and the loaders ---------------------------
+    t0 = time.perf_counter()
+    path12_surface(prob, f, lr, multi, w11, card)
+    print(f"path 12b-d: {time.perf_counter() - t0:.2f} s on {card}",
+          flush=True)
 
     launches = {n: counts1[n] for n in PATH1}
     launches.update({n: counts2[n] for n in PATH2 if n not in PATH1})
@@ -2963,6 +3160,7 @@ def main() -> int:
         rec["launches_path4"] = counts_p4[rec["name"]]
         rec["launches_path8"] = counts_p8[rec["name"]]
         rec["launches_path11"] = counts_p11[rec["name"]]
+        rec["launches_path12"] = multi["launches"][rec["name"]]
         rec["geometry"] = RECTANGLE
     print(json.dumps({"kernels": records + domain_records}))
     print(json.dumps({"ok": True, "device": {

@@ -58,6 +58,14 @@ def eval_p1_tensor(space: TaylorHoodSpace, g: torch.Tensor,
     return vals, inside
 
 
+def eval_velocity_basis(space: TaylorHoodSpace, points: torch.Tensor):
+    """Point location and P2 basis values at points (..., 2), for point
+    sources (the transpose of interpolation): (cell, dofs (..., 6),
+    phi (..., 6), inside)."""
+    cell, xi, inside = locate_points(space.locator, points)
+    return cell, space.cell_dofs_p2[cell], p2_basis(xi), inside
+
+
 def boundary_eval_velocity(space: TaylorHoodSpace, bq: BoundaryQuad,
                            u: torch.Tensor) -> torch.Tensor:
     """Restrict a P2 velocity field to the Γ₁ quadrature points

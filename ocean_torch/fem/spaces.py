@@ -19,6 +19,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..mesh.structured import Mesh2D, mark_boundary_facets
 from ..mesh.locate import Locator
 from . import reference as ref
@@ -100,6 +101,10 @@ class TaylorHoodSpace:
         """Mixed vector → (velocity (n_p2, 2), pressure (n_p1,))."""
         return w[: 2 * self.n_p2].reshape(self.n_p2, 2), w[2 * self.n_p2:]
 
+    def join(self, u: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+        """(velocity (n_p2, 2), pressure (n_p1,)) → mixed vector."""
+        return torch.cat([u.reshape(-1), p])
+
 
 def _mixed_cell_dofs(cell_dofs_p2: np.ndarray, cells: np.ndarray,
                      n_p2: int) -> np.ndarray:
@@ -127,8 +132,10 @@ def incidence(dofs: np.ndarray, ndof: int) -> np.ndarray:
     return inc
 
 
-def make_space(mesh: Mesh2D, device="cpu") -> TaylorHoodSpace:
-    """Build the Taylor–Hood space tables for a mesh on ``device``."""
+def make_space(mesh: Mesh2D, device="cuda") -> TaylorHoodSpace:
+    """Build the Taylor–Hood space tables for a mesh on ``device`` (the
+    card by default; raises without one unless ``device="cpu"``)."""
+    device = resolve_device(device)
     nv, nc = mesh.num_vertices, mesh.num_cells
     n_p2 = nv + mesh.num_edges
     cell_dofs_p2 = np.concatenate([mesh.cells, nv + mesh.cell_edges], axis=1)
@@ -166,9 +173,11 @@ def make_space(mesh: Mesh2D, device="cpu") -> TaylorHoodSpace:
 
 def make_boundary_quad(mesh: Mesh2D, tags: np.ndarray, tag: int = 1,
                        n_gauss: int = EDGE_GAUSS_POINTS,
-                       device="cpu") -> BoundaryQuad:
+                       device="cuda") -> BoundaryQuad:
     """Facet quadrature tables for all boundary facets with ``tags ==
-    tag`` — the discrete ``ds(tag)`` measure."""
+    tag`` — the discrete ``ds(tag)`` measure — on ``device`` (the card by
+    default; raises without one unless ``device="cpu"``)."""
+    device = resolve_device(device)
     sel = np.nonzero(tags == tag)[0]
     cells = mesh.bf_cells[sel]
     a = mesh.vertices[mesh.bf_vertices[sel, 0]]

@@ -22,8 +22,12 @@ is another recursion ((I + h∇uᵀ), u at x[k+1]), so it is not reused.
 As in the JAX package, ∇u is the L2 projection onto P1 (gen-1
 interpolated it nodally through dolfinx). The solvers live on one device
 (default ``"cuda"``; ``device="cpu"`` runs on the host) and take and
-return tensors there; gen-1 runs no CUDA kernel of the port (its ODE
-and point sources are the table paths, as in the JAX package).
+return tensors there. ``fem.make_space`` and ``fem.make_boundary_quad``
+default to the card too, so the JAX way, ``NavierStokesSolver(
+make_space(mesh), make_boundary_quad(mesh, tags), ...)``, runs there;
+on the host, pass ``device="cpu"`` to all three. Gen-1 runs no CUDA
+kernel of the port (its ODE and point sources are the table paths, as
+in the JAX package).
 """
 
 from __future__ import annotations

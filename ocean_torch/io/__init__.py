@@ -4,6 +4,7 @@
 HDF5 reader (``dolfin_h5``, h5py imported when a file is read)."""
 
 from . import artifacts, checkpoint, dolfin_h5, plots, torch_ckpt, xdmf
+from .artifacts import RunDirectory
 
 __all__ = ["artifacts", "checkpoint", "dolfin_h5", "plots", "torch_ckpt",
-           "xdmf"]
+           "xdmf", "RunDirectory"]

@@ -7,7 +7,8 @@ module's: the control's quad and p2 values, the running LR (NaN for
 None) and the iteration (−1 for None). As Orbax does, a write is atomic:
 the payload goes to a temporary file in the target's directory, which
 ``os.replace`` then moves onto ``path``, so an interrupted write leaves
-the previous checkpoint readable. Loading uses ``weights_only=True``.
+the previous checkpoint readable. Loading uses ``weights_only=True`` and
+puts the control on the card unless the caller asks for another device.
 
 The on-disk format is one ``torch.save`` file, not an Orbax directory:
 reading an Orbax checkpoint needs ``orbax`` and ``jax``, which the port
@@ -24,6 +25,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..control import Control
+from ..device import resolve_device
 
 
 def save_control(path: str, ctrl: Control, lr: Optional[float] = None,
@@ -46,11 +48,14 @@ def save_control(path: str, ctrl: Control, lr: Optional[float] = None,
         raise
 
 
-def load_control(path: str, map_location="cpu"
+def load_control(path: str, device="cuda"
                  ) -> Tuple[Control, Optional[float], Optional[int]]:
-    """(control, lr or None, iteration or None) of a checkpoint file."""
-    data = torch.load(os.path.abspath(path), map_location=map_location,
-                      weights_only=True)
+    """(control, lr or None, iteration or None) of a checkpoint file, on
+    ``device``: the card by default (raises without one unless
+    ``device="cpu"``); a caller that holds a space passes
+    ``device=space.device``."""
+    data = torch.load(os.path.abspath(path),
+                      map_location=resolve_device(device), weights_only=True)
     lr, it = data["lr"], data["iteration"]
     return (Control(data["quad"], data["p2"]),
             None if math.isnan(lr) else lr,

@@ -128,3 +128,11 @@ def solve_refined(fac, matvec64: Callable[[torch.Tensor], torch.Tensor],
     for _ in range(iters):
         x = x + fac.solve(b - matvec64(x))
     return x
+
+
+def solve_dense(a64: torch.Tensor, b: torch.Tensor, iters: int = 12
+                ) -> torch.Tensor:
+    """One-shot dense solve of a small system (the P1 mass matrix of a
+    projection): float64 factors, refined ``iters`` times against
+    ``a64``."""
+    return solve_refined(factorize(a64), lambda x: a64 @ x, b, iters)

@@ -88,6 +88,11 @@ class StencilTables:
     def s_shape(self):
         return (self.Hy * self.Hx, self.C, self.n_off * self.C)
 
+    @property
+    def s_size(self) -> int:
+        """Coefficients of the stencil image, n_off·C²·Hy·Hx."""
+        return self.n_off * self.C * self.C * self.Hy * self.Hx
+
 
 def build_stencil_tables(space: TaylorHoodSpace,
                          bq: Optional[BoundaryQuad],

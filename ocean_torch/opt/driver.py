@@ -107,14 +107,14 @@ def run_gradient_descent(cfg: OCPConfig, prob: "sys_mod.OCPProblem",
             print(f"Gradient descent iteration: {i}")
         t_outer = _clock(dev)
         fwd = (fwd_next if fwd_next is not None
-               else sys_mod._forward(prob, f.quad))
+               else sys_mod.forward(prob, f.quad))
         fwd_next = None
         if (prob.newton_reuse_lu
                 and not math.isfinite(fwd.newton.residual_norm)):
             if verbose:
                 print("fast-path Newton diverged; re-solving with "
                       "fresh factorizations")
-            fwd = sys_mod._forward(
+            fwd = sys_mod.forward(
                 dataclasses.replace(prob, newton_reuse_lu=False), f.quad)
         z, adj_ok = sys_mod._solve_adjoint_flagged(prob, fwd)
         g = sys_mod.reduced_gradient(prob, f, z)
@@ -149,7 +149,7 @@ def run_gradient_descent(cfg: OCPConfig, prob: "sys_mod.OCPProblem",
                     print("line search at " + str(lr))
                 inner += 1
                 f_ls_quad = f.quad + lr * df.quad
-                fwd_ls = sys_mod._forward(prob, f_ls_quad)
+                fwd_ls = sys_mod.forward(prob, f_ls_quad)
                 j_new = float(sys_mod.cost(prob, fwd_ls.u_values, f_ls_quad))
                 if j_old - j_new >= lr * cond:
                     if reuse_ls_forward:

@@ -21,7 +21,7 @@ from ..io import artifacts
 
 def _j_probe(prob, f_quad) -> float:
     """Forward solve + cost for one FD probe."""
-    fwd = sys_mod._forward(prob, f_quad)
+    fwd = sys_mod.forward(prob, f_quad)
     return float(sys_mod.cost(prob, fwd.u_values, f_quad))
 
 

@@ -7,9 +7,9 @@ modes, on the [0,2]² square and the L-shape, either diagonal).
                        (float64 LU, float32 LU or explicit float32
                        inverse) or the multigrid hierarchy
                        (build_mg_hierarchy)
-    _solve_ns          primal Navier–Stokes Newton solve (dense or mg),
+    solve_ns           primal Navier–Stokes Newton solve (dense or mg),
                        behind a viscosity-continuation ladder below ν = 1
-    _forward           NS + primal buoy ODE
+    forward            NS + primal buoy ODE
     cost               J(u_values, f)
     adjoint_rhs        ∇u projection + adjoint ODE + point sources (the
                        buoy-axis part: _adjoint_rhs_body)
@@ -479,8 +479,8 @@ def _float32_tables(tables):
         and getattr(tables, f.name).is_floating_point()})
 
 
-def _solve_ns(prob: OCPProblem, f_quad: torch.Tensor,
-              matvec_of=None) -> NewtonResult:
+def solve_ns(prob: OCPProblem, f_quad: torch.Tensor,
+             matvec_of=None) -> NewtonResult:
     """Primal NS Newton solve from w = 0: dense steps (chord on the
     Stokes factor with ``newton_reuse_lu``, its sweeps in float32 with
     ``newton_chord_f32``), or on the multigrid path float32 FGMRES steps
@@ -569,7 +569,7 @@ class _DifferentiableNS(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, f_quad, prob):
-        w = _solve_ns(prob, f_quad).w
+        w = solve_ns(prob, f_quad).w
         ctx.prob = prob
         ctx.save_for_backward(w)
         return w
@@ -613,12 +613,12 @@ def _primal_ode(prob: OCPProblem, u: torch.Tensor):
                                   else None))
 
 
-def _forward(prob: OCPProblem, f_quad: torch.Tensor, ode_impl=None,
-             matvec_of=None) -> ForwardState:
+def forward(prob: OCPProblem, f_quad: torch.Tensor, ode_impl=None,
+            matvec_of=None) -> ForwardState:
     """NS solve + primal buoy ODE. ``ode_impl`` replaces the ODE stage
     (the buoy-sharded ``_primal_ode`` of ``parallel/sharding.py``),
     ``matvec_of`` the multigrid Krylov matvec."""
-    res = _solve_ns(prob, f_quad, matvec_of=matvec_of)
+    res = solve_ns(prob, f_quad, matvec_of=matvec_of)
     u, _ = prob.space.split(res.w)
     ode = (ode_impl or _primal_ode)(prob, u)
     return ForwardState(res.w, ode.x, ode.u_values, ode.mask, res,
@@ -810,7 +810,7 @@ def line_search(prob: OCPProblem, f: Control, g: Control, fwd: ForwardState,
     after the one failed probe at the floor (a further probe would be the
     identical computation) and after ``max_ls_iters`` decrements.
     ``probes`` counts the accepting (or last) probe too. A probe's
-    forward runs with ``ode_impl`` and ``matvec_of`` (``_forward``)."""
+    forward runs with ``ode_impl`` and ``matvec_of`` (``forward``)."""
     df = Control(-g.quad, -g.p2)
     gradj = float(ctrl_mod.boundary_inner(prob.bq, g, df))
     cond_thresh = -c_armijo * gradj
@@ -818,7 +818,7 @@ def line_search(prob: OCPProblem, f: Control, g: Control, fwd: ForwardState,
     it = 0
     while True:
         f_ls = f.quad + lr * df.quad
-        fwd_ls = _forward(prob, f_ls, ode_impl=ode_impl, matvec_of=matvec_of)
+        fwd_ls = forward(prob, f_ls, ode_impl=ode_impl, matvec_of=matvec_of)
         j_new = float(cost(prob, fwd_ls.u_values, f_ls))
         accept = j_old - j_new >= lr * cond_thresh
         if accept or not (it < max_ls_iters and lr > lr_min):
@@ -847,7 +847,7 @@ def gd_step(prob: OCPProblem, f: Control, lr,
     search and update serve every layout. Unset, the step is the
     single-device one."""
     lr = float(lr)
-    fwd = _forward(prob, f.quad, ode_impl=ode_impl, matvec_of=matvec_of)
+    fwd = forward(prob, f.quad, ode_impl=ode_impl, matvec_of=matvec_of)
     z, adj_ok = _solve_adjoint_flagged(prob, fwd,
                                        adjoint_rhs_impl=adjoint_rhs_impl,
                                        matvec_of=matvec_of)
@@ -881,16 +881,22 @@ class GDTrajectory(NamedTuple):
 def gd_multi_step(prob: OCPProblem, f: Control, lr, n_steps: int,
                   use_line_search: bool = True, tau: float = 0.5,
                   c_armijo: float = 1e-4, lr_min: float = 1e-6,
-                  max_ls_iters: int = 80):
+                  max_ls_iters: int = 80, ode_impl=None,
+                  adjoint_rhs_impl=None, matvec_of=None):
     """``n_steps`` iterations of ``gd_step`` with the control and the LR
     carried along: (f_final, lr_final, GDTrajectory). No divergence or
     convergence check happens between the steps; the per-step
-    ``diverged`` flags are returned for the caller."""
+    ``diverged`` flags are returned for the caller. The three hooks go to
+    every step (``gd_step``), so a sharded layout runs N iterations in
+    one call; ``mask_count`` sums the mask over every lane, padding
+    included, as the JAX package does."""
     rows = []
     for _ in range(n_steps):
         res = gd_step(prob, f, lr, use_line_search=use_line_search, tau=tau,
                       c_armijo=c_armijo, lr_min=lr_min,
-                      max_ls_iters=max_ls_iters)
+                      max_ls_iters=max_ls_iters, ode_impl=ode_impl,
+                      adjoint_rhs_impl=adjoint_rhs_impl,
+                      matvec_of=matvec_of)
         rows.append((float(res.J), res.lr, float(res.div_u),
                      res.inner_iterations, int(res.fwd.mask.sum()),
                      res.diverged))

@@ -87,8 +87,8 @@ def test_factors_follow_the_knobs(problems):
 @pytest.mark.parametrize("name", ["f32", "both"])
 def test_f32_chord_newton_against_f64(problems, name):
     probs, f = problems
-    r64 = system._solve_ns(probs["f64"], f.quad)
-    r32 = system._solve_ns(probs[name], f.quad)
+    r64 = system.solve_ns(probs["f64"], f.quad)
+    r32 = system.solve_ns(probs[name], f.quad)
     assert r32.converged and r64.converged
     assert r32.residual_norm < 1e-8
     assert float((r32.w - r64.w).abs().max()) < 1e-8
@@ -109,7 +109,7 @@ def test_f32_chord_against_jax(data, problems):
     probs, f = problems
     pj = _jax(data, newton_chord_f32=True)
     rj = jax_system.solve_ns(pj, jax_system.initial_control(pj, 0).quad)
-    rt = system._solve_ns(probs["f32"], f.quad)
+    rt = system.solve_ns(probs["f32"], f.quad)
     assert bool(rj.converged) and rt.converged
     assert rt.iterations == int(rj.iterations)
     assert np.abs(rt.w.numpy() - np.asarray(rj.w)).max() < 1e-8

@@ -3,7 +3,9 @@ against ``ocean_jax.io.orbax_ckpt`` and the timing utilities
 (``ocean_torch/utils/timing.py``).
 
 A round trip returns the saved control exactly (``torch.equal``) with the
-same (lr, iteration) as the Orbax backend, the None cases included.
+same (lr, iteration) as the Orbax backend, the None cases included. The
+loader puts the control on the device asked for, the card by default,
+and raises without one.
 """
 
 import os
@@ -36,7 +38,8 @@ def test_round_trip_matches_orbax(tmp_path, lr, iteration):
     torch_ckpt.save_control(str(tmp_path / "q.pt"),
                             Control(torch.as_tensor(quad),
                                     torch.as_tensor(p2)), lr, iteration)
-    got, lr_t, it_t = torch_ckpt.load_control(str(tmp_path / "q.pt"))
+    got, lr_t, it_t = torch_ckpt.load_control(str(tmp_path / "q.pt"),
+                                              device="cpu")
     orbax_ckpt.save_control(str(tmp_path / "orbax"),
                             JaxControl(jnp.asarray(quad), jnp.asarray(p2)),
                             lr, iteration)
@@ -59,10 +62,31 @@ def test_interrupted_write_keeps_the_old_checkpoint(tmp_path, monkeypatch):
     with pytest.raises(KeyboardInterrupt):
         torch_ckpt.save_control(path, old.scale(2.0), 0.25, 3)
     monkeypatch.undo()
-    got, lr, it = torch_ckpt.load_control(path)
+    got, lr, it = torch_ckpt.load_control(path, device="cpu")
     assert torch.equal(got.quad, old.quad) and torch.equal(got.p2, old.p2)
     assert (lr, it) == (0.5, 2)
     assert os.listdir(tmp_path) == ["q.pt"]        # no temporary file left
+
+
+def test_load_control_lands_on_the_space_or_the_card(tmp_path, monkeypatch):
+    from ocean_torch.fem import make_space
+    from ocean_torch.mesh import structured
+    path = str(tmp_path / "q.pt")
+    quad, p2 = _control(2)
+    saved = Control(torch.as_tensor(quad), torch.as_tensor(p2))
+    torch_ckpt.save_control(path, saved, 0.5, 4)
+    space = make_space(structured.rectangle_mesh((0.0, 0.0), (2.0, 2.0), 2,
+                                                 2), device="cpu")
+    for device in (space.device, "cpu"):
+        got, lr, it = torch_ckpt.load_control(path, device=device)
+        assert got.quad.device.type == got.p2.device.type == "cpu"
+        assert torch.equal(got.quad, saved.quad)
+        assert torch.equal(got.p2, saved.p2) and (lr, it) == (0.5, 4)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        torch_ckpt.load_control(path)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        torch_ckpt.load_control(path, device="cuda")
 
 
 def test_sync_walks_nested_structures():

@@ -69,7 +69,7 @@ def escape():
 def test_forward_escapes_match_jax(escape):
     pt, _, fwd_j, _, f = escape
     for backend in ("gather", "pallas"):
-        fwd = system._forward(dataclasses.replace(pt, ode_backend=backend),
+        fwd = system.forward(dataclasses.replace(pt, ode_backend=backend),
                               f.quad)
         assert fwd.mask.numpy().tolist() == np.asarray(fwd_j.mask).tolist()
         assert fwd.kfail.numpy().tolist() == np.asarray(fwd_j.kfail).tolist()
@@ -98,7 +98,7 @@ def test_consistent_equals_reference_without_escapes(backend, method):
     u_d = 0.05 * rng.standard_normal((4, cfg.num_time_steps, 2))
     x0 = 0.3 + 1.4 * rng.random((4, 2))
     prob = system.build_problem(cfg, u_d=u_d, x0=x0, device="cpu")
-    fwd = system._forward(prob, system.initial_control(prob, 0).quad)
+    fwd = system.forward(prob, system.initial_control(prob, 0).quad)
     assert not bool(fwd.mask.any())
     b_ref = system.adjoint_rhs(prob, fwd)
     b_con = system.adjoint_rhs(

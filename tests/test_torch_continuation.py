@@ -14,7 +14,7 @@ Bars:
   the forward state within 1e-10 relative;
 * vanilla Newton (no rungs) reports the same ``converged`` flag, False,
   in both packages, with a residual above 1 (JAX's is its
-  ``newton_solve`` from w = 0 at ν, what ``system._solve_ns`` runs
+  ``newton_solve`` from w = 0 at ν, what ``system.solve_ns`` runs
   without rungs, through the rung program already compiled);
 * one Armijo ``gd_step`` from ``initial_control(case=0)`` at LR 0.15625,
   whose first probe converges and is accepted (from a larger
@@ -86,7 +86,7 @@ def ladder(data):
     pj = _jax_problem(data, newton_continuation=6)
     ft = system.initial_control(pt, case=0)
     fj = jax_system.initial_control(pj, case=0)
-    rt = system._solve_ns(pt, ft.quad)
+    rt = system.solve_ns(pt, ft.quad)
     w = jnp.zeros(pj.space.ndof)
     rung_iters = []
     for nu_k in system.continuation_viscosities(0.01, 6):
@@ -146,7 +146,7 @@ def test_armijo_step_matches_jax(ladder):
 def test_vanilla_newton_flag_matches_jax(data, ladder):
     """The failure the ladder exists for, in both packages."""
     pt = _torch_problem(data)
-    rt = system._solve_ns(pt, system.initial_control(pt, case=0).quad)
+    rt = system.solve_ns(pt, system.initial_control(pt, case=0).quad)
     rj = _jax_rung(ladder.pj, ladder.fj.quad, jnp.zeros(ladder.pj.space.ndof),
                    0.01)
     assert rt.converged is bool(rj.converged) is False
@@ -161,6 +161,6 @@ def test_no_ladder_is_the_plain_solve(data, kw):
     p = _torch_problem(data, **kw)
     plain = _torch_problem(data, **{**kw, "newton_continuation": 0})
     f = system.initial_control(p, case=0)
-    r, r0 = system._solve_ns(p, f.quad), system._solve_ns(plain, f.quad)
+    r, r0 = system.solve_ns(p, f.quad), system.solve_ns(plain, f.quad)
     assert torch.equal(r.w, r0.w) and r.iterations == r0.iterations
     assert [x["solve"] for x in p.solve_log] == ["ns_newton"]

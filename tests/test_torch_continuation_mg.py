@@ -40,14 +40,14 @@ def test_multigrid_ladder_is_honest():
     u_d, x0 = r["u_values"], r["x"][:, 0, :]
     pm = _problem(u_d, x0, linear_solver="mg")
     f = system.initial_control(pm, case=0)
-    rm = system._solve_ns(pm, f.quad)
+    rm = system.solve_ns(pm, f.quad)
     rungs = [r for r in pm.solve_log if r["solve"] == "ns_rung"]
     assert len(rungs) == 7 and pm.solve_log[-1]["solve"] == "ns_newton"
     assert all(math.isfinite(r["residual_norm"]) for r in pm.solve_log)
     assert pm.solve_log[-1]["converged"] is rm.converged
     if rm.converged:
         pd = _problem(u_d, x0)
-        wd = system._solve_ns(pd, f.quad).w
+        wd = system.solve_ns(pd, f.quad).w
         assert (rm.w - wd).abs().max() < 1e-8 * wd.abs().max()
     else:
         assert math.isfinite(rm.residual_norm)

@@ -504,7 +504,7 @@ def test_implicit_adjoint_and_boundary_load_on_card(dev):
     K, nt = 64, 200
     u = 0.5 * rng.standard_normal((make_space(mesh, "cpu").n_p2, 2))
     fq = 0.2 * rng.standard_normal(
-        tuple(make_boundary_quad(mesh, tags).points.shape))
+        tuple(make_boundary_quad(mesh, tags, device="cpu").points.shape))
     x = 0.3 + 1.4 * rng.random((K, 1, 2)) \
         + np.cumsum(0.005 * rng.standard_normal((K, nt, 2)), axis=1)
     x[0, :, 0] = np.linspace(1.8, 2.2, nt)          # leaves through x = 2
@@ -642,7 +642,7 @@ def test_continuation_ladder_on_card(dev):
         prob = dataclasses.replace(_small_problem(
             where, K=10, viscosity=0.01, newton_continuation=6),
             solve_log=[])
-        res = system._solve_ns(prob, system.initial_control(prob, 0).quad)
+        res = system.solve_ns(prob, system.initial_control(prob, 0).quad)
         assert res.converged
         runs[where] = (res.w, [r["iterations"] for r in prob.solve_log])
     assert len(runs["cuda"][1]) == len(runs["cpu"][1]) == 8
@@ -696,3 +696,28 @@ def test_sharded_step_nccl_one_rank(dev):
     assert float((got["f_quad"] - ref.f_new.quad.cpu()).abs().max()) <= 1e-12
     assert got["lr"] == ref.lr
     assert got["mask_count"] == float(ref.fwd.mask.sum())
+
+
+def test_checkpoint_and_space_default_to_the_card(dev, tmp_path):
+    """``make_space``, ``make_boundary_quad`` and
+    ``torch_ckpt.load_control`` without a device land on the card; a
+    control saved from the card comes back equal."""
+    from ocean_torch.control import Control
+    from ocean_torch.fem.spaces import make_boundary_quad
+    from ocean_torch.io import torch_ckpt
+    mesh = structured.rectangle_mesh((0.0, 0.0), (2.0, 2.0), 4, 4)
+    tags = structured.mark_boundary_facets(
+        mesh, lambda x: np.abs(x[:, 0]) < 1e-12)
+    space, bq = make_space(mesh), make_boundary_quad(mesh, tags)
+    assert space.device.type == bq.points.device.type == "cuda"
+    rng = np.random.default_rng(5)
+    saved = Control(torch.as_tensor(rng.standard_normal(
+        tuple(bq.points.shape)), device=dev),
+        torch.as_tensor(rng.standard_normal((space.n_p2, 2)), device=dev))
+    path = str(tmp_path / "q.pt")
+    torch_ckpt.save_control(path, saved, 0.5, 3)
+    for kw in ({}, dict(device=space.device)):
+        got, lr, it = torch_ckpt.load_control(path, **kw)
+        assert got.quad.device.type == got.p2.device.type == "cuda"
+        assert torch.equal(got.quad, saved.quad)
+        assert torch.equal(got.p2, saved.p2) and (lr, it) == (0.5, 3)

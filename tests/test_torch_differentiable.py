@@ -74,7 +74,7 @@ def test_exact_gradient_vs_fd_and_adjoint(problems):
     directional = float(torch.sum(g_auto * df.quad))
 
     def j_fd(fq):
-        return float(system.cost(prob, system._forward(prob, fq).u_values,
+        return float(system.cost(prob, system.forward(prob, fq).u_values,
                                  fq))
 
     h = 1e-5

@@ -65,7 +65,7 @@ def _write(path, mesh, space, u, name="u"):
 def test_readers_agree(tmp_path, which):
     mk_t, mk_j = MESHES[which]
     mt, mj = mk_t(), mk_j()
-    st, sj = make_space(mt), jax_make_space(mj)
+    st, sj = make_space(mt, device="cpu"), jax_make_space(mj)
     u = _field(st)
     _write(tmp_path / "u.h5", mt, st, u)
     got_t = dolfin_h5.read_checkpoint_velocity(str(tmp_path / "u.h5"), mt,
@@ -99,12 +99,13 @@ def test_dolfin_control_matches_jax(tmp_path):
 
 def test_other_resolution_raises_in_both(tmp_path):
     m8 = rectangle_mesh((0.0, 0.0), (2.0, 2.0), 8, 8)
-    _write(tmp_path / "u.h5", m8, make_space(m8), _field(make_space(m8)))
+    s8 = make_space(m8, device="cpu")
+    _write(tmp_path / "u.h5", m8, s8, _field(s8))
     mt = rectangle_mesh((0.0, 0.0), (2.0, 2.0), 6, 6)
     mj = jax_rectangle_mesh((0.0, 0.0), (2.0, 2.0), 6, 6)
     with pytest.raises(ValueError, match="resolutions must match"):
         dolfin_h5.read_checkpoint_velocity(str(tmp_path / "u.h5"), mt,
-                                           make_space(mt))
+                                           make_space(mt, device="cpu"))
     with pytest.raises(ValueError, match="resolutions must match"):
         jax_dolfin.read_checkpoint_velocity(str(tmp_path / "u.h5"), mj,
                                             jax_make_space(mj))
@@ -115,7 +116,7 @@ def test_reader_without_h5py_names_it(tmp_path, monkeypatch):
     monkeypatch.setitem(sys.modules, "h5py", None)
     with pytest.raises(ImportError, match="h5py"):
         dolfin_h5.read_checkpoint_velocity(str(tmp_path / "u.h5"), m,
-                                           make_space(m))
+                                           make_space(m, device="cpu"))
 
 
 K = 6
@@ -131,7 +132,7 @@ def reference_runs(tmp_path_factory):
     r = ud_construction.run(nx=8, K=K, T=0.1,
                             out_dir=str(base / f"{K}_buoys"), device="cpu")
     mesh = rectangle_mesh((0.0, 0.0), (2.0, 2.0), 8, 8)
-    space = make_space(mesh)
+    space = make_space(mesh, device="cpu")
     ubar = base / "u_bar_chapter_6.3.3" / "paraview" / "checkpoint"
     ubar.mkdir(parents=True)
     u, _ = space.split(r["w"])

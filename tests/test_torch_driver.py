@@ -110,8 +110,8 @@ def test_reuse_ls_forward_changes_nothing_but_the_solves(setup, monkeypatch):
     _, pt, _, ft = setup
     cfg = OCPConfig(**BASE, use_line_search=True, num_steps=3, LR=1000.0)
     calls = []
-    real = system._forward
-    monkeypatch.setattr(system, "_forward",
+    real = system.forward
+    monkeypatch.setattr(system, "forward",
                         lambda p, q: calls.append(1) or real(p, q))
     runs = {}
     for reuse in (True, False):

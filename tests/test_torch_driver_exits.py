@@ -82,7 +82,7 @@ def test_stale_lu_resolve(setup, monkeypatch):
     cfg = OCPConfig(**BASE, use_line_search=False, num_steps=2, LR=5.0,
                     newton_reuse_lu=True)
     clean = run_gradient_descent(cfg, pt, ft, verbose=False)
-    real = system._forward
+    real = system.forward
     seen = []
 
     def faulty(prob, f_quad):
@@ -95,7 +95,7 @@ def test_stale_lu_resolve(setup, monkeypatch):
                                            converged=False))
         return fwd
 
-    monkeypatch.setattr(system, "_forward", faulty)
+    monkeypatch.setattr(system, "forward", faulty)
     res = run_gradient_descent(cfg, pt, ft, verbose=False)
     assert seen == [True, False, True]        # faulty, fresh, iteration 1
     assert all(math.isfinite(j) for j in res.j_array)

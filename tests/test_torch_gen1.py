@@ -262,7 +262,8 @@ def test_graded_pipe_stokes_solve():
                                    lc_min=0.08, lc_max=0.3)
     assert not mesh.uniform
     space = make_space(mesh, "cpu")
-    bq = make_boundary_quad(mesh, mark_boundary_facets(mesh, _inlet), tag=1)
+    bq = make_boundary_quad(mesh, mark_boundary_facets(mesh, _inlet), tag=1,
+                            device="cpu")
     bc = dirichlet_velocity_bc(mesh, space, _walls)
     ns = NavierStokesSolver(space, bq, *bc, alpha=1e-2, device="cpu")
     q = ctrl_mod.from_expression(

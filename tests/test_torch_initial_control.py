@@ -117,7 +117,7 @@ def test_stored_ubar_is_not_ported(runs, tmp_path, capsys):
     shutil.copytree(os.path.join(runs, f"{K}_buoys"),
                     os.path.join(ref, f"{K}_buoys"))
     mesh = rectangle_mesh((0.0, 0.0), (2.0, 2.0), 8, 8)
-    space = make_space(mesh)
+    space = make_space(mesh, device="cpu")
     u = np.random.default_rng(4).standard_normal((space.n_p2, 2))
     write_dolfin_velocity(str(ubar / "u.h5"), mesh,
                           space.cell_dofs_p2.numpy(), 0.1 * u)

@@ -94,7 +94,7 @@ def test_gd_step_armijo_matches_jax(problems, lr0, kw, want):
 def _armijo_margins(pt, f, lr, tau=0.5, c=1e-4, lr_min=1e-6):
     """The line search of ``system.line_search``, probe by probe:
     (lr, (j_old − j_new) − lr·(−c·gradj)) of every probe."""
-    fwd = system._forward(pt, f.quad)
+    fwd = system.forward(pt, f.quad)
     z, _ = system._solve_adjoint_flagged(pt, fwd)
     g = system.reduced_gradient(pt, f, z)
     df = Control(-g.quad, -g.p2)
@@ -103,7 +103,7 @@ def _armijo_margins(pt, f, lr, tau=0.5, c=1e-4, lr_min=1e-6):
     out = []
     while True:
         f_ls = f.quad + lr * df.quad
-        j_new = float(system.cost(pt, system._forward(pt, f_ls).u_values,
+        j_new = float(system.cost(pt, system.forward(pt, f_ls).u_values,
                                   f_ls))
         margin = (j_old - j_new) - lr * (-c * gradj)
         out.append((lr, margin, j_old))
@@ -156,24 +156,24 @@ def test_gd_multi_step_matches_jax(problems, use_line_search):
 
 def test_line_search_satisfies_armijo_at_the_accepted_lr(problems):
     _, pt, _, ft = problems
-    fwd = system._forward(pt, ft.quad)
+    fwd = system.forward(pt, ft.quad)
     z, _ = system._solve_adjoint_flagged(pt, fwd)
     g = system.reduced_gradient(pt, ft, z)
     lr, probes, gradj = system.line_search(pt, ft, g, fwd, 1000.0)
     assert (lr, probes) == (250.0, 3) and gradj < 0
     f_new = ft.axpy(-lr, g)
     j_old = float(system.cost(pt, fwd.u_values, ft.quad))
-    state = system._forward(pt, f_new.quad)
+    state = system.forward(pt, f_new.quad)
     j_new = float(system.cost(pt, state.u_values, f_new.quad))
     assert j_old - j_new >= lr * (-1e-4 * gradj)
     # and not at the LR before it
     f_big = ft.axpy(-2 * lr, g)
-    j_big = float(system.cost(pt, system._forward(pt, f_big.quad).u_values,
+    j_big = float(system.cost(pt, system.forward(pt, f_big.quad).u_values,
                               f_big.quad))
     assert j_old - j_big < 2 * lr * (-1e-4 * gradj)
     # the forward solve is deterministic: what the driver's reuse of the
     # accepted probe's state rests on
-    again = system._forward(pt, f_new.quad)
+    again = system.forward(pt, f_new.quad)
     assert torch.equal(again.w, state.w) and torch.equal(again.x, state.x)
     # a search that stops on its floor
     lr, probes, _ = system.line_search(pt, ft, g, fwd, 1000.0, lr_min=500.0)

@@ -163,8 +163,8 @@ def test_mg_lshape_staircase():
     pd = system.build_problem(dataclasses.replace(cfg, linear_solver="dense"),
                               u_d=u_d, x0=x0, device="cpu")
     f = system.initial_control(pm, case=0)
-    rm = system._solve_ns(pm, f.quad)
-    rd = system._solve_ns(pd, f.quad)
+    rm = system.solve_ns(pm, f.quad)
+    rd = system.solve_ns(pd, f.quad)
     assert rm.converged and rm.residual_norm < 1e-11
     assert float((rm.w - rd.w).abs().max()) < 3e-8
 
@@ -177,7 +177,7 @@ def test_mg_mesh_independent_cycles():
     for nx in (8, 16, 24):
         prob = _problem(nx, "mg")
         f = system.initial_control(prob, case=0)
-        w = system._solve_ns(prob, f.quad).w
+        w = system.solve_ns(prob, f.quad).w
         op = assemble.ns_operator(prob.space, prob.bq, w, prob.nu,
                                   prob.bc_dofs)
         b = assemble.apply_bc_vector(
@@ -239,7 +239,7 @@ def test_refusals_name_what_is_missing():
     for solver in ("mg", "dense"):
         p = dataclasses.replace(_problem(8, solver, newton_continuation=2,
                                          viscosity=0.2), solve_log=[])
-        res = system._solve_ns(p, system.initial_control(p, 0).quad)
+        res = system.solve_ns(p, system.initial_control(p, 0).quad)
         assert res.converged and [r["solve"] for r in p.solve_log] == \
             ["ns_rung"] * 3 + ["ns_newton"]
         states.append(res.w)
@@ -258,7 +258,7 @@ def test_adjoint_flag_reports_unconverged_refinement():
     held to 1e-16 does not converge, the default rounds do."""
     pm = _problem(8, "mg")
     f = system.initial_control(pm, case=0)
-    fwd = system._forward(pm, f.quad)
+    fwd = system.forward(pm, f.quad)
     b = system.adjoint_rhs(pm, fwd)
     op, op_c = system.adjoint_operators(pm, fwd.w)
     assert op_c is None

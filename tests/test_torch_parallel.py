@@ -6,15 +6,21 @@ One spawn (``launch.spawn``, rank functions in
 matvec on 3 ranks, the buoy-sharded step on 4 ranks in three cases (the
 default method; exact Ozaki point sources with the consistent adjoint
 and a control that ejects the lane of rank 1; the Armijo search from an
-LR it must backtrack from), and the 2-D step on a 2 × 2 layout with the
-multigrid solver at Nx=8. The problem is the JAX package's sharding
-problem (Nx=8, 6 buoys padded to 8, T=0.05).
+LR it must backtrack from), the 2-D step on a 2 × 2 layout with the
+multigrid solver at Nx=8, and two iterations of ``system.gd_multi_step``
+with the buoy hooks (line search off and on) and with all three hooks
+on the 2 × 2 layout (the 2-D step's problem). The problem is the JAX
+package's sharding problem (Nx=8, 6 buoys padded to 8, T=0.05).
 
 Tolerances, the JAX package's own (``tests/test_sharding.py``): J within
 1e-12 relative and the new control within 1e-12 of the single-device
 step (the 2-D step 1e-9: its float32 Krylov matvec sums in another
 order), the same LR and escape count; the sharded matvec within 1e-12 of
-``Operator.matvec64``. Every rank returns the same bits as rank 0.
+``Operator.matvec64``; the multi-step cases J and the final control
+within 1e-12 relative (the 2-D case 1e-9, as the 2-D step) of the
+single-device ``gd_multi_step``, with equal LRs, probe and escape
+counts. Every rank returns the same bits as rank
+0.
 """
 
 import numpy as np
@@ -146,6 +152,35 @@ def test_sharded_step_2d_matches_single_device(ranks):
     assert float((got["f_quad"] - ref.f_new.quad).abs().max()) <= 1e-9
     assert got["mask_count"] == float(ref.fwd.mask.sum())
     _same_on_every_rank(ranks, "2d")
+
+
+@pytest.mark.parametrize("name", ["multi_fixed", "multi_armijo",
+                                  cases.MULTI_2D])
+def test_sharded_multi_step_matches_single_device(ranks, name):
+    prob, f, lr, opts = cases.multi_step_cases("cpu")[name]
+    tol = 1e-9 if name == cases.MULTI_2D else 1e-12
+    f_ref, lr_ref, traj = system.gd_multi_step(prob, f, lr,
+                                               cases.MULTI_STEPS, **opts)
+    got = ranks[0][name]
+    assert got["J"].shape == (cases.MULTI_STEPS,)
+    assert not bool(got["diverged"].any()) and not bool(traj.diverged.any())
+    assert float((got["J"] - traj.J).abs().max()) \
+        <= tol * float(traj.J.abs().max())
+    for key, ref in (("f_quad", f_ref.quad), ("f_p2", f_ref.p2)):
+        assert float((got[key] - ref).abs().max()) \
+            <= tol * float(ref.abs().max())
+    assert got["lr_final"] == lr_ref
+    for key in ("lr", "mask_count", "inner_iterations"):
+        assert torch.equal(got[key], getattr(traj, key)), key
+    if name == "multi_armijo":
+        assert int(traj.inner_iterations[0]) > 1 and lr_ref < lr
+    calls = got["hook_calls"]           # every hook ran in every iteration
+    assert calls["adjoint_rhs_impl"] == cases.MULTI_STEPS
+    assert calls["ode_impl"] == cases.MULTI_STEPS \
+        + int(traj.inner_iterations.sum())          # forwards and probes
+    assert calls.get("matvec_of", 0) > 0 \
+        if name == cases.MULTI_2D else "matvec_of" not in calls
+    _same_on_every_rank(ranks, name)
 
 
 def test_sharded_step_needs_a_process_group():

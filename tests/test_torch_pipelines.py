@@ -295,7 +295,7 @@ def test_cli_once_refused_flags_run(tmp_path, flags, name):
     if name == "load_dolfin_control":
         cfg = OCPConfig(L_shape_resolution=4, **LSHAPE)
         mesh = ocp._mesh(cfg)
-        space = make_space(mesh)
+        space = make_space(mesh, device="cpu")
         u = np.random.default_rng(2).standard_normal((space.n_p2, 2))
         write_dolfin_velocity(str(tmp_path / "q.h5"), mesh,
                               space.cell_dofs_p2.numpy(), 0.1 * u, name="f")

@@ -125,7 +125,7 @@ def test_postprocess_figures(two_buoys, tmp_path):
     npz = str(tmp_path / "field_npz.png")
     postprocess.replot_field(out_t + "paraview/checkpoint/up.npz", npz, nx=8)
     mesh = rectangle_mesh((0.0, 0.0), (2.0, 2.0), 8, 8)
-    space = make_space(mesh)
+    space = make_space(mesh, device="cpu")
     u = np.load(out_t + "paraview/checkpoint/up.npz")["u"]
     write_dolfin_velocity(str(tmp_path / "u.h5"), mesh,
                           space.cell_dofs_p2.numpy(), u)

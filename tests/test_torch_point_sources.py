@@ -3,7 +3,7 @@
 
 Inputs are system-consistent (an unmasked buoy's points all lie inside;
 masked buoys sit at the center; u_values are u evaluated along the
-trajectory), as the fused method assumes and ``system._forward``
+trajectory), as the fused method assumes and ``system.forward``
 produces.
 
 Tolerances: 1e-12 absolute against the JAX float64 "scatter" path. The
@@ -168,7 +168,7 @@ def test_fused_last_step_outside_unmasked():
     f = ctrl_mod.constant(prob.space, prob.bq, [3.0, 0.0])
     p_sc = dataclasses.replace(prob, psrc_method="scatter",
                                ode_backend="gather")
-    fwd = sys_mod._forward(p_sc, f.quad)
+    fwd = sys_mod.forward(p_sc, f.quad)
     center_last = ((fwd.x[:, -1] == prob.center).all(dim=1) & ~fwd.mask)
     assert bool(center_last.any()), "setup no longer hits the edge case"
     b_sc = sys_mod.adjoint_rhs(p_sc, fwd)

@@ -39,7 +39,7 @@ def _problem(nx=12):
 
 def test_cg_projector_matches_dense_and_jax():
     mesh_t = rectangle_mesh((0.0, 0.0), (2.0, 2.0), 12, 12)
-    space = make_space(mesh_t)
+    space = make_space(mesh_t, device="cpu")
     sj = jax_make_space(jax_rectangle_mesh((0.0, 0.0), (2.0, 2.0), 12, 12))
     u = np.random.default_rng(1).standard_normal((space.n_p2, 2))
 
@@ -58,7 +58,8 @@ def test_cg_projector_matches_dense_and_jax():
 def test_cg_mass_solve_converges_at_nx64():
     """The fixed 60 lumped-Jacobi CG iterations reach float64 round-off
     against a dense solve at Nx=64 (4,225 P1 dofs)."""
-    space = make_space(rectangle_mesh((0.0, 0.0), (2.0, 2.0), 64, 64))
+    space = make_space(rectangle_mesh((0.0, 0.0), (2.0, 2.0), 64, 64),
+                       device="cpu")
     b = torch.as_tensor(np.random.default_rng(2).standard_normal(
         (space.n_p1, 1)))
     minv = projection._lumped_inverse(space)
@@ -71,7 +72,8 @@ def test_cg_mass_solve_converges_at_nx64():
 def test_cg_extra_iterations_are_no_ops():
     """Past convergence the guarded divisions keep the iterate: no NaN,
     and 200 iterations give the 60-iteration answer to round-off."""
-    space = make_space(rectangle_mesh((0.0, 0.0), (2.0, 2.0), 8, 8))
+    space = make_space(rectangle_mesh((0.0, 0.0), (2.0, 2.0), 8, 8),
+                       device="cpu")
     minv = projection._lumped_inverse(space)
     b = torch.as_tensor(np.random.default_rng(3).standard_normal(
         (space.n_p1, 4)))
@@ -86,7 +88,8 @@ def test_cg_extra_iterations_are_no_ops():
 def test_auto_switches_at_the_cap(monkeypatch):
     """"auto": dense up to DENSE_P1_CAP P1 dofs, cg above it; "dense" and
     "cg" force a regime whatever the size."""
-    space = make_space(rectangle_mesh((0.0, 0.0), (2.0, 2.0), 6, 6))
+    space = make_space(rectangle_mesh((0.0, 0.0), (2.0, 2.0), 6, 6),
+                       device="cpu")
     monkeypatch.setattr(projection, "DENSE_P1_CAP", space.n_p1)
     assert GradProjector.build(space, solver="auto").mode == "lu"
     assert GradProjector.build(space, solver="cg").mode == "cg"
@@ -98,7 +101,8 @@ def test_auto_switches_at_the_cap(monkeypatch):
 def test_auto_uses_cg_past_the_cap():
     """Nx=142: 20,449 P1 dofs, past the cap of 20,000, builds the CG
     projector (no dense mass matrix)."""
-    space = make_space(rectangle_mesh((0.0, 0.0), (2.0, 2.0), 142, 142))
+    space = make_space(rectangle_mesh((0.0, 0.0), (2.0, 2.0), 142, 142),
+                       device="cpu")
     assert space.n_p1 > projection.DENSE_P1_CAP
     pj = GradProjector.build(space)
     assert pj.mode == "cg" and pj.fac is None

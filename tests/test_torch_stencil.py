@@ -59,8 +59,8 @@ def _setup(name):
         mesh = make(mod)
         tags = mod.mark_boundary_facets(mesh, lambda x: np.abs(x[:, 0]) < EPS)
         if sp_mod is None:
-            space = make_space(mesh)
-            bq = make_boundary_quad(mesh, tags, tag=1)
+            space = make_space(mesh, device="cpu")
+            bq = make_boundary_quad(mesh, tags, tag=1, device="cpu")
             bc, _ = dirichlet_velocity_bc(mesh, space,
                                           lambda x: x[:, 0] > EPS)
             if w is None:
@@ -124,7 +124,7 @@ def test_facet_free_operator():
     """A Stokes operator without boundary terms pairs with tables built
     with bq=None."""
     mesh = structured.unit_square_mesh(6)
-    space = make_space(mesh)
+    space = make_space(mesh, device="cpu")
     bc, _ = dirichlet_velocity_bc(mesh, space, lambda x: x[:, 0] > EPS)
     op = assemble.ns_operator(space, None,
                               torch.zeros(space.ndof, dtype=torch.float64),
@@ -138,7 +138,8 @@ def test_facet_free_operator():
             stencil.build_stencil_tables(
                 space, make_boundary_quad(
                     mesh, structured.mark_boundary_facets(
-                        mesh, lambda x: np.abs(x[:, 0]) < EPS), tag=1),
+                        mesh, lambda x: np.abs(x[:, 0]) < EPS), tag=1,
+                    device="cpu"),
                 "mixed"), op)
 
 
@@ -163,8 +164,8 @@ def test_mg_matvec_knob_switches_paths():
     assert p_st.mg.matvec == "stencil" and p_st.mg.st_mixed is not None
     assert p_sc.mg.matvec == "scatter" and p_sc.mg.st_vel is None
     f = system.initial_control(p_st, case=0)
-    a = system._solve_ns(p_st, f.quad)
-    b = system._solve_ns(p_sc, f.quad)
+    a = system.solve_ns(p_st, f.quad)
+    b = system.solve_ns(p_sc, f.quad)
     assert a.converged and b.converged
     assert float((a.w - b.w).abs().max()) < 1e-9
 
@@ -180,5 +181,5 @@ def test_failed_table_build_falls_back_and_says_so(monkeypatch):
     p_fb = system.build_problem(cfg, **_mg_data(cfg))
     assert p_fb.mg.matvec == "scatter" and p_fb.mg.st_mixed is None
     f = system.initial_control(p_st, case=0)
-    assert float((system._solve_ns(p_st, f.quad).w
-                  - system._solve_ns(p_fb, f.quad).w).abs().max()) < 1e-9
+    assert float((system.solve_ns(p_st, f.quad).w
+                  - system.solve_ns(p_fb, f.quad).w).abs().max()) < 1e-9

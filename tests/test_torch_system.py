@@ -122,7 +122,7 @@ def test_unported_branches_raise():
         p = dataclasses.replace(
             system.build_problem(OCPConfig(**{**FAST, **kw}), **base),
             solve_log=[])
-        res = system._solve_ns(p, system.initial_control(p, 4).quad)
+        res = system.solve_ns(p, system.initial_control(p, 4).quad)
         assert res.converged and all(r["converged"] for r in p.solve_log)
         rungs = [r for r in p.solve_log if r["solve"] == "ns_rung"]
         assert len(rungs) == kw.get("newton_continuation", -1) + 1
@@ -192,9 +192,18 @@ def test_import_leaves_jax_out():
             "ocean_torch.opt.ensemble, ocean_torch.parallel, "
             "ocean_torch.parallel.launch, ocean_torch.gen1, "
             "ocean_torch.gen1.main, ocean_torch.io.torch_ckpt, "
-            "ocean_torch.utils; "
-            "bad = [m for m in sys.modules if m == 'jax' or "
-            "m.startswith('jax.') or m.startswith('ocean_jax')]; "
+            "ocean_torch.utils, torch; "
+            "from ocean_torch import OCPConfig, load_parameters; "
+            "from ocean_torch.io import RunDirectory; "
+            "from ocean_torch.ops import (LUSolver, factorize, "
+            "solve_refined, StencilTables, build_stencil_tables, "
+            "stencil_matvec); "
+            "from ocean_torch.opt import grad_check; "
+            "assert ocean_torch.OCPConfig is OCPConfig; "
+            "assert not torch.cuda.is_initialized(); "
+            "bad = [m for m in sys.modules if m in ('jax', 'matplotlib', "
+            "'h5py') or m.startswith(('jax.', 'ocean_jax', 'matplotlib.', "
+            "'h5py.'))]; "
             "print(bad); sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=str(__import__("pathlib").Path(
