@@ -196,7 +196,27 @@ Phases, in order; any failure exits non-zero before the last line:
     device land on the card; the graded pipe's Stokes state equals 11d's.
     12d: ``import ocean_torch`` in a fresh interpreter imports no jax,
     matplotlib or h5py, leaves CUDA uninitialized, and
-    ``ocean_torch.OCPConfig`` resolves.
+    ``ocean_torch.OCPConfig`` resolves;
+22. path 13, the host-stepped solver layer (``system.make_staged_pair``,
+    the stepped Newton and the staged adjoint, the driver's two loops,
+    ``scripts/hires_mg_run_torch.py::run_gd_staged``), counts set to 0
+    before and read after each part and summed. 13a: path 3's run with
+    ``staged_driver=False`` (the per-stage loop; path 3 ran the staged
+    loop): J, LR, probes, ‖div u‖ and the final control equal bit for
+    bit. 13b: path 9a's problem (Nx=64, ν = 1, mg): ``run_newton_staged``
+    against ``newton_solve_mg`` (the same iteration count, w within
+    1e-12·max|w|), with ``max_refreeze=2, stall_ratio=0`` (two
+    re-freezes, converged, within 1e-9), ``run_adjoint_staged`` against
+    ``_solve_adjoint_flagged`` (z within 1e-12·max|z|), kernels 1–3 on
+    its state. 13c: the ν = 0.01 study (Nx=64, 6 rungs) through
+    ``run_gd_staged`` from LR 1, 2 iterations: iteration 0 accepts 2⁻⁷
+    after 8 probes and J₀ lies within 1e-6 of the TPU record, J equals
+    path 10b's driver bit for bit, J₁ and the Newton iterations beside
+    the record's, kernels 1–3 on the last state. 13d: Nx=256 (592,387
+    dofs, 4 levels, CG projection), 2 iterations from LR 1 with up to 12
+    adjoint rounds: J within 1e-6 of the TPU record, adjoint rounds and
+    final relative residual beside the record's, the peak device memory,
+    kernels 1–3 on the last state.
 Phase 4 also runs the hard inputs of the "left" diagonal and the pipes.
 Path 3 runs with ``dense_apply="inverse"`` (``limits.run``'s fast paths,
 as in the JAX package).
@@ -204,8 +224,8 @@ as in the JAX package).
 The line before the last is the kernels' JSON record, one entry per
 kernel and geometry (``geometry``), with the launches of paths 1–2 and
 ``launches_path3``, ``_path4``, ``_path8``, ``_path11`` (the counted
-sharded steps of 11a and, for the segment sum, 11b) and ``_path12`` (12a's
-counted ``gd_multi_step``); the last line is
+sharded steps of 11a and, for the segment sum, 11b), ``_path12`` (12a's
+counted ``gd_multi_step``) and ``_path13``; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
@@ -2080,10 +2100,10 @@ def path10a_golden(tmp: str, card: str):
     return records, counts
 
 
-def path10b_hires(card: str):
+def path10b_hires(card: str) -> list:
     """10b: the hi-res study at ν = 0.01 (Nx=64, mg, 400 buoys, Armijo, 6
     rungs), two driver iterations; then one forward with a forced dense
-    ladder at the initial control against mg. The search starts at 2⁻⁷,
+    ladder at the initial control against mg. Returns the driver's J. The search starts at 2⁻⁷,
     the LR it accepts from the study's LR 1 after 8 probes (502 s of
     mostly stalled rungs on an NVIDIA H100 at 700 W), so J and the states
     are those of LR 1."""
@@ -2127,6 +2147,7 @@ def path10b_hires(card: str):
     print(f"path 10b: J {res.j_array!r} beside the TPU record "
           f"{list(HIRES_NU001_J[:2])}; J0 relative gap {dj0!r}", flush=True)
     check(dj0 < 1e-6, f"path 10b: J0 {res.j_array[0]} off the TPU record")
+    j_10b = list(res.j_array)
     # the forced dense ladder at the initial control, without the mg
     # problem and the Stokes LU (the ladder factorizes J(w) each step)
     j_mg = float(system.cost(prob, fwds[0].u_values, f0.quad))
@@ -2152,6 +2173,7 @@ def path10b_hires(card: str):
           flush=True)
     del prob_d, fwd_d
     torch.cuda.empty_cache()
+    return j_10b
 
 
 def path10c_float32(cfg, u_d, x0, f, lr, res1, card: str) -> None:
@@ -2795,6 +2817,297 @@ def path12_surface(prob, f, lr, multi: dict, w11, card: str) -> None:
           flush=True)
 
 
+# --- path 13: the host-stepped solver layer ---------------------------------
+#
+# The JAX package's records of its hi-res study (results/hires_mg/
+# summary.json and run.log): nx64_nu0.01 iterations 0-1 (J, Newton
+# iterations of each iteration's forward state, iteration 0's accepted LR
+# and probes from LR 1) and nx256 iterations 0-1 (J, adjoint rounds and
+# final relative residual).
+
+HIRES_NU001_NEWTON = (24, 8)
+HIRES_NU001_LR0, HIRES_NU001_PROBES0 = 2.0 ** -7, 8
+HIRES256_J = (1.1585050541458255, 0.2390457894889173)
+HIRES256_ADJOINT = ((5, 2.949e-11), (5, 2.289e-11))
+
+
+@contextlib.contextmanager
+def finished_states(into: list):
+    """Newton stagers made inside append each forward state their
+    ``finish`` returns to ``into`` (the states a runner goes on with are
+    not returned by it)."""
+    from ocean_torch import system
+
+    make = system.make_newton_stager
+
+    def wrapped(prob, **kw):
+        st = make(prob, **kw)
+
+        def finish(*args):
+            out = st.finish(*args)
+            into.append(out[0])
+            return out
+        return st._replace(finish=finish)
+
+    system.make_newton_stager = wrapped
+    try:
+        yield
+    finally:
+        system.make_newton_stager = make
+
+
+def run_runner(name: str, prob, f0, cfg, card: str, **kw):
+    """``scripts/hires_mg_run_torch.py::run_gd_staged`` with the Armijo
+    search from ``cfg.LR`` for ``cfg.num_steps`` iterations, counts set
+    to 0 before and read after. Returns (J, seconds, Newton iterations,
+    adjoint stats, the accepted (LR, probes) of each iteration, the log,
+    the last forward state a stager finished, counts)."""
+    import io
+    import re
+    import torch
+    from ocean_torch import kernels
+
+    sys.path.insert(0, str(ROOT / "scripts"))
+    from hires_mg_run_torch import run_gd_staged
+
+    fh, states = io.StringIO(), []
+    kernels.reset_launch_counts()
+    with finished_states(states):
+        js, secs, nit, adj = run_gd_staged(
+            prob, f0, cfg.LR, cfg.num_steps, fh, name, line_search=True,
+            cfg=cfg, **kw)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    text = fh.getvalue()
+    accepted = [(float(a), int(b)) for a, b in re.findall(
+        r"line search accepted lr=(\S+) \((\d+) probes\)", text)]
+    check(len(js) == cfg.num_steps == len(accepted),
+          f"{name}: {len(js)} iterations, accepted {accepted}")
+    check(all(v == v and abs(v) != float("inf") for v in js)
+          and all(b < a for a, b in zip(js, js[1:])),
+          f"{name}: J not finite and decreasing: {js}")
+    check(all(adj["adjoint_rounds"]), f"{name}: adjoint rounds {adj}")
+    # every forward ends in the stager's finish, which runs the ODE: the
+    # first one, one a probe (an abandoned probe at its flatlined rung
+    # too) and one a cold retry of a warm probe that stalled
+    abandoned = text.count("abandoning probe")
+    retried = text.count("cold-ladder retry")
+    want = {"primal_ode": 1 + sum(p for _, p in accepted) + retried,
+            "adjoint_ode": len(js), "point_sources": len(js),
+            "p1_eval": 0, "segment_sum": 0}
+    check(counts == want and len(states) == want["primal_ode"],
+          f"{name}: launches {counts}, expected {want} ({abandoned} "
+          f"abandoned probes, {retried} cold retries)")
+    print(f"{name}: J={js!r} accepted (LR, probes) {accepted} "
+          f"newton_iterations={nit} adjoint rounds "
+          f"{adj['adjoint_rounds']} final relative residual "
+          f"{adj['adjoint_final_rel_res']!r}; {abandoned} probes abandoned "
+          f"at a flatlined rung, {retried} warm probes retried cold, "
+          f"{text.count('flatlined')} flatlined rungs; seconds {secs!r}; "
+          f"launches {counts} on {card}", flush=True)
+    return js, secs, nit, adj, accepted, text, states[-1], counts
+
+
+def add_counts(total: dict, counts: dict) -> dict:
+    return {k: total.get(k, 0) + v for k, v in counts.items()}
+
+
+def path13a_driver_loops(cfg3, res3, tmp: str, card: str) -> dict:
+    """13a: path 3's run with ``staged_driver=False`` (the per-stage
+    loop): J, LR, probes and the final control equal bit for bit to path
+    3's, which ran the staged loop. Returns the launches."""
+    import torch
+    from ocean_torch import kernels
+    from ocean_torch.pipelines import limits
+
+    cfg = dataclasses.replace(cfg3, staged_driver=False,
+                              out_dir=str(Path(tmp) / "limits13a"))
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res, _, _ = limits.run(cfg, fast_paths=True, verbose=False,
+                           device="cuda",
+                           ud_cache_dir=str(ROOT / "data" / "ud_torch"))
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    check(res.j_array == res3.j_array and res.lr == res3.lr
+          and res.inner_iterations == res3.inner_iterations
+          and res.divs_u == res3.divs_u
+          and torch.equal(res.f.quad, res3.f.quad)
+          and torch.equal(res.f.p2, res3.f.p2),
+          f"path 13a: the per-stage loop gives J {res.j_array} LR {res.lr} "
+          f"probes {res.inner_iterations}, the staged loop (path 3) "
+          f"{res3.j_array} {res3.lr} {res3.inner_iterations}")
+    print(f"path 13a (limits.run, staged_driver=False, the per-stage "
+          f"loop): J, LR {res.lr!r}, probes {res.inner_iterations} and the "
+          f"final control equal bit for bit to path 3's staged loop; "
+          f"{time.perf_counter() - t0:.2f} s with set-up and artifacts, "
+          f"launches {counts} on {card}", flush=True)
+    return counts
+
+
+def path13b_stagers(u_d, x0, card: str):
+    """13b: path 9a's problem (Nx=64, ν = 1, mg): the stepped Newton
+    against ``newton_solve_mg`` (``solve_ns``), then with two forced
+    re-freezes; the staged adjoint against ``_solve_adjoint_flagged``.
+    Returns (kernel records, launches)."""
+    import torch
+    from ocean_torch import kernels, system
+    from ocean_torch.config import OCPConfig
+
+    dev = torch.device("cuda")
+    cfg = OCPConfig(ud_experiment="400_buoys", unit_square_resolution=64,
+                    psrc_method="fused", ode_backend="pallas")
+    prob = system.build_problem(cfg, u_d=u_d, x0=x0, device=dev)
+    check(prob.linear_solver == "mg", "path 13b: not the mg path")
+    f0 = system.initial_control(prob, case=4)
+    w0 = torch.zeros(prob.space.ndof, dtype=torch.float64, device=dev)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    ref = system.solve_ns(prob, f0.quad)
+    torch.cuda.synchronize()
+    t_ref = time.perf_counter() - t0
+    stager = system.make_newton_stager(prob)
+    t0 = time.perf_counter()
+    w, it, rn, conv = system.run_newton_staged(stager, f0.quad, w0, prob.nu)
+    torch.cuda.synchronize()
+    t_st = time.perf_counter() - t0
+    scale = float(ref.w.abs().max())
+    gap = float((w - ref.w).abs().max())
+    check(conv and ref.converged and it == ref.iterations
+          and gap <= 1e-12 * scale,
+          f"path 13b: stepped Newton {it} iterations, converged {conv}, "
+          f"{gap} from newton_solve_mg's {ref.iterations} (max|w| {scale})")
+    events = []
+    w2, it2, rn2, conv2 = system.run_newton_staged(
+        stager, f0.quad, w0, prob.nu, max_refreeze=2, stall_ratio=0.0,
+        on_step=lambda i, r, e: events.append((i, r, e)))
+    gap2 = float((w2 - ref.w).abs().max())
+    refreezes = [(i, r) for i, r, e in events if e == "refreeze"]
+    check(conv2 and len(refreezes) == 2 and gap2 <= 1e-9 * scale,
+          f"path 13b: with max_refreeze=2 converged {conv2}, re-freezes "
+          f"{refreezes}, {gap2} from newton_solve_mg")
+    fwd, j0 = stager.finish(f0.quad, w, it, rn, conv)
+    z_ref, ok_ref = system._solve_adjoint_flagged(prob, fwd)
+    rounds = []
+    z, g, gradj, div_u, ok = system.run_adjoint_staged(
+        system.make_adjoint_stager(prob), f0, fwd,
+        on_round=lambda r, rel: rounds.append((r, rel)))
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    zgap = float((z - z_ref).abs().max())
+    zscale = float(z_ref.abs().max())
+    check(ok and ok_ref and zgap <= 1e-12 * zscale,
+          f"path 13b: staged adjoint ok {ok}, {zgap} from "
+          f"_solve_adjoint_flagged (max|z| {zscale})")
+    want = {"primal_ode": 1, "adjoint_ode": 2, "point_sources": 2,
+            "p1_eval": 0, "segment_sum": 0}
+    check(counts == want, f"path 13b: launches {counts}, expected {want}")
+    print(f"path 13b (Nx=64, ν=1, mg): run_newton_staged {it} iterations "
+          f"(newton_solve_mg {ref.iterations}), w {gap!r} from it (max|w| "
+          f"{scale!r}), {t_st:.2f} s against {t_ref:.2f} s; max_refreeze=2 "
+          f"stall_ratio=0: {it2} iterations, re-freezes after steps "
+          f"{[i for i, _ in refreezes]}, converged, w {gap2!r} from "
+          f"newton_solve_mg; run_adjoint_staged rounds {rounds}, z "
+          f"{zgap!r} from _solve_adjoint_flagged (max|z| {zscale!r}); J "
+          f"{float(j0)!r}; launches {counts} on {card}", flush=True)
+    records = state_kernels(prob, fwd, counts, "rectangle, Nx=64, mg, "
+                            "stepped Newton", card)
+    return records, counts
+
+
+def path13c_nu001(u_d, x0, card: str, j_10b: list):
+    """13c: the ν = 0.01 hi-res study through ``run_gd_staged`` (Nx=64,
+    mg, 6 rungs, Armijo from LR 1, 2 iterations; the stagnation break
+    and the flatline abandon): iteration 0's LR and probes and J₀ held to
+    the TPU record, J equal to path 10b's driver (``j_10b``, the same
+    iterates from LR 2⁻⁷). J₁ is printed beside the record: the record's
+    iteration 0 ran before the JAX package scaled the multigrid adjoint's
+    preconditioner by 1/ν, so its g₀ and f₁ came from an adjoint that had
+    not converged; J₀ hides that (its control term is 1e-7 of it), J₁
+    does not. Returns (kernel records, launches)."""
+    import torch
+    from ocean_torch import system
+    from ocean_torch.config import OCPConfig
+
+    dev = torch.device("cuda")
+    cfg = OCPConfig(ud_experiment="400_buoys", unit_square_resolution=64,
+                    viscosity=0.01, newton_continuation=6,
+                    use_line_search=True, LR=1.0, num_steps=2,
+                    psrc_method="fused", ode_backend="pallas")
+    prob = system.build_problem(cfg, u_d=u_d, x0=x0, device=dev)
+    check(prob.linear_solver == "mg", "path 13c: not the mg path")
+    f0 = system.initial_control(prob, case=4)
+    js, secs, nit, adj, accepted, text, last, counts = run_runner(
+        "path 13c (Nx=64, ν=0.01, run_gd_staged)", prob, f0, cfg, card)
+    check(accepted[0] == (HIRES_NU001_LR0, HIRES_NU001_PROBES0),
+          f"path 13c: iteration 0 accepted (LR, probes) {accepted[0]}, the "
+          f"record {(HIRES_NU001_LR0, HIRES_NU001_PROBES0)}")
+    gaps = [abs(a - b) / b for a, b in zip(js, HIRES_NU001_J)]
+    print(f"path 13c: J {js!r} beside the TPU record "
+          f"{list(HIRES_NU001_J[:2])} (relative gaps {gaps!r}; J1's record "
+          f"came from an unconverged adjoint at iteration 0) and equal to "
+          f"path 10b's driver {j_10b!r}; Newton iterations {nit} beside "
+          f"the record's {list(HIRES_NU001_NEWTON)}; iteration 0 "
+          f"{secs[0]:.1f} s from LR 1 (path 10b's driver from LR 1: 502.3 "
+          f"s on an H100 80GB HBM3 at 700 W, its probes' stalled rungs "
+          f"running 50 Newton steps) on {card}", flush=True)
+    check(gaps[0] < 1e-6, f"path 13c: J0 {js[0]} off the TPU record")
+    check(js == j_10b, f"path 13c: J {js} differs from path 10b's driver "
+          f"{j_10b}")
+    records = state_kernels(prob, last, counts, "rectangle, Nx=64, ν=0.01, "
+                            "run_gd_staged", card)
+    return records, counts
+
+
+def path13d_nx256(u_d, x0, card: str):
+    """13d: Nx=256 (592,387 dofs, 4 levels, CG projection) through
+    ``run_gd_staged``: two Armijo iterations from LR 1 with the staged
+    adjoint, J held to the TPU record. Returns (kernel records,
+    launches)."""
+    import torch
+    from ocean_torch import system
+    from ocean_torch.config import OCPConfig
+
+    dev = torch.device("cuda")
+    nx = 256
+    cfg = OCPConfig(ud_experiment="400_buoys", unit_square_resolution=nx,
+                    use_line_search=True, LR=1.0, num_steps=2,
+                    psrc_method="fused", ode_backend="pallas")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    prob = system.build_problem(cfg, u_d=u_d, x0=x0, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    levels = mg_levels(prob.mg)
+    check(prob.linear_solver == "mg"
+          and prob.space.ndof == square_sizes(nx)[0] == 592387
+          and len(levels) == 3 and prob.projector.mode == "cg",
+          f"path 13d: {prob.space.ndof} dofs, {len(levels) + 1} levels, "
+          f"projector {prob.projector.mode}")
+    print(f"path 13d: Nx={nx}, {prob.space.ndof} mixed dofs, "
+          f"{len(levels) + 1} levels (leaf {levels[-1].ainv_c.shape[0]} "
+          f"velocity dofs), projector {prob.projector.mode!r}; set-up "
+          f"{build_s:.2f} s by part {json.dumps(prob.setup_seconds)} on "
+          f"{card}", flush=True)
+    f0 = system.initial_control(prob, case=4)
+    js, secs, nit, adj, accepted, text, last, counts = run_runner(
+        f"path 13d (Nx={nx}, run_gd_staged)", prob, f0, cfg, card,
+        adj_max_rounds=12)
+    gaps = [abs(a - b) / b for a, b in zip(js, HIRES256_J)]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"path 13d: J {js!r} beside the TPU record {list(HIRES256_J)} "
+          f"(relative gaps {gaps!r}); adjoint (rounds, final relative "
+          f"residual) {list(zip(adj['adjoint_rounds'], adj['adjoint_final_rel_res']))}"
+          f" beside the record's {list(HIRES256_ADJOINT)}; Newton "
+          f"iterations {nit}; seconds {secs!r}; peak device memory "
+          f"{peak:.1f} GiB on {card}", flush=True)
+    check(max(gaps) < 1e-6, f"path 13d: J {js} off the TPU record")
+    records = state_kernels(prob, last, counts, f"rectangle, Nx={nx}, mg, "
+                            "run_gd_staged", card)
+    return records, counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3138,7 +3451,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         golden_records, counts_p10a = path10a_golden(tmp, card)
     domain_records += golden_records
-    path10b_hires(card)
+    j_10b = path10b_hires(card)
     path10c_float32(cfg, u_d, x0, f, lr, res1, card)
 
     # --- 20. path 11: the sharded steps and gen-1 ---------------------------
@@ -3151,6 +3464,25 @@ def main() -> int:
     print(f"path 12b-d: {time.perf_counter() - t0:.2f} s on {card}",
           flush=True)
 
+    # --- 22. path 13: the host-stepped solver layer --------------------------
+    u_d400, x0_400 = ensure_ud(OCPConfig(ud_experiment="400_buoys",
+                                         unit_square_resolution=32),
+                               cache_dir=str(ROOT / "data" / "ud_torch"),
+                               device=dev)
+    t13 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        counts_p13 = path13a_driver_loops(cfg3, res3, tmp, card)
+    for sub, extra in ((path13b_stagers, ()), (path13c_nu001, (j_10b,)),
+                       (path13d_nx256, ())):
+        t0 = time.perf_counter()
+        recs, counts = sub(u_d400, x0_400, card, *extra)
+        domain_records += recs
+        counts_p13 = add_counts(counts_p13, counts)
+        print(f"{sub.__name__}: {time.perf_counter() - t0:.2f} s on {card}",
+              flush=True)
+    print(f"path 13: {time.perf_counter() - t13:.2f} s, launches "
+          f"{counts_p13} on {card}", flush=True)
+
     launches = {n: counts1[n] for n in PATH1}
     launches.update({n: counts2[n] for n in PATH2 if n not in PATH1})
     launches["p1_eval"] = counts3["p1_eval"]
@@ -3161,6 +3493,7 @@ def main() -> int:
         rec["launches_path8"] = counts_p8[rec["name"]]
         rec["launches_path11"] = counts_p11[rec["name"]]
         rec["launches_path12"] = multi["launches"][rec["name"]]
+        rec["launches_path13"] = counts_p13[rec["name"]]
         rec["geometry"] = RECTANGLE
     print(json.dumps({"kernels": records + domain_records}))
     print(json.dumps({"ok": True, "device": {

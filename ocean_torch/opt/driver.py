@@ -11,13 +11,21 @@ module): the optimization loop of the reference with identical semantics:
     pipeline, 10 for the limits pipeline),
   * outer/inner wall-clock timings per iteration.
 
-PyTorch runs eagerly, so there is one loop. The JAX package has two, a
-per-stage one and a "staged" one over ``make_staged_pair`` programs; the
-staged programs and the ``staged`` switch exist to pack TPU dispatches
-into few device programs and have no counterpart here. Where the two JAX
-loops differ this one follows the per-stage loop: when the line search
-stops at its safety bound, the control is updated with the LR after the
-last decrement, not with the LR of the last probe.
+Two loops, as in the JAX package. The staged loop (``staged=True``, the
+default, ``OCPConfig.staged_driver``) drives the stages of
+``system.make_staged_pair``: one ``grad`` a iteration, one ``probe`` a
+line-search trial, and the accepted probe's forward state carried into
+the next iteration. The per-stage loop (``staged=False``, or
+``reuse_ls_forward=False``) calls ``forward`` and the adjoint solve
+itself. With the defaults both give bit-identical (J, LR) trajectories.
+They differ where the line search stops at ``max_line_search_iters``:
+the staged loop then takes the probe made at the LR before the last
+decrement while carrying the decremented LR; the per-stage loop updates
+the control with the decremented LR.
+
+The stepped multigrid Newton and the staged adjoint
+(``system.run_newton_staged``, ``run_adjoint_staged``) are driven by the
+high-resolution runner, ``scripts/hires_mg_run_torch.py``, not here.
 """
 
 from __future__ import annotations
@@ -69,6 +77,7 @@ def run_gradient_descent(cfg: OCPConfig, prob: "sys_mod.OCPProblem",
                          on_iteration: Optional[Callable] = None,
                          grad_check_dir: Optional[str] = None,
                          reuse_ls_forward: bool = True,
+                         staged: bool = True,
                          verbose: bool = True) -> GDRunResult:
     """Run up to cfg.num_steps GD iterations. ``escape_threshold`` defaults
     to K/2 (OCP pipeline); the limits pipeline passes 10.
@@ -83,11 +92,18 @@ def run_gradient_descent(cfg: OCPConfig, prob: "sys_mod.OCPProblem",
     A chord-Newton solve (``prob.newton_reuse_lu``) whose residual is not
     finite diverged on its stale factors and is re-solved with fresh
     factorizations. ``on_iteration(i, f, fwd, z, j_array)`` runs after
-    each iteration's records."""
+    each iteration's records.
+
+    ``staged=True`` (default) runs the staged loop (``_run_gd_staged``),
+    which implies the ``reuse_ls_forward`` trade; ``staged=False`` or
+    ``reuse_ls_forward=False`` the per-stage loop."""
     if escape_threshold is None:
         escape_threshold = prob.K / 2
     if df is None:
         df = sys_mod.fd_direction(prob)
+    if staged and reuse_ls_forward:
+        return _run_gd_staged(cfg, prob, f, escape_threshold, df,
+                              on_iteration, grad_check_dir, verbose)
     dev = prob.device
 
     lr = cfg.LR
@@ -187,6 +203,126 @@ def run_gradient_descent(cfg: OCPConfig, prob: "sys_mod.OCPProblem",
             exit_reason = "converged"
             break
         elif float(fwd.mask.sum()) > escape_threshold:
+            if verbose:
+                print("too many buoys out of domain .. exiting")
+            exit_reason = "buoy_escape"
+            break
+
+    last_u_values = (None if last_fwd is None
+                     else last_fwd.u_values.cpu().numpy())
+    return GDRunResult(j_array, divs_u, x_array, outer_times, inner_times,
+                       inner_iterations, f, lr, last_fwd, last_z,
+                       last_u_values, exit_reason, it_run)
+
+
+def _run_gd_staged(cfg: OCPConfig, prob: "sys_mod.OCPProblem", f: Control,
+                   escape_threshold: float, df: Control,
+                   on_iteration: Optional[Callable],
+                   grad_check_dir: Optional[str],
+                   verbose: bool) -> GDRunResult:
+    """The loop over ``system.make_staged_pair``: per iteration one
+    ``grad``, one ``probe`` per line-search trial and one ``record``; the
+    accepted probe's forward state is the next iteration's. The semantics
+    of the per-stage loop (LR not reset, J(old u, new f), the exits, the
+    re-solve of a diverged chord Newton, the gradient check at i = 0),
+    apart from the safety bound of the line search (module docstring)."""
+    progs = sys_mod.make_staged_pair(prob)
+    dev = prob.device
+    lr = cfg.LR
+    j_array: List[float] = []
+    divs_u: List[float] = []
+    x_array: List[np.ndarray] = []
+    outer_times: List[float] = []
+    inner_times: List[float] = []
+    inner_iterations: List[int] = []
+    exit_reason = "num_steps"
+    last_fwd = last_z = None
+    it_run = 0
+
+    def fresh_resolve(f_quad):
+        if verbose:
+            print("fast-path Newton diverged; re-solving with "
+                  "fresh factorizations")
+        fwd_f = sys_mod.forward(
+            dataclasses.replace(prob, newton_reuse_lu=False), f_quad)
+        return fwd_f, float(progs.record(fwd_f.u_values, f_quad))
+
+    fwd, j_old = None, None
+    for i in range(cfg.num_steps):
+        if verbose:
+            print(f"Gradient descent iteration: {i}")
+        t_outer = _clock(dev)
+        if fwd is None:
+            fwd, j_dev = progs.begin(f.quad)
+            j_old = float(j_dev)
+        if (prob.newton_reuse_lu
+                and not math.isfinite(fwd.newton.residual_norm)):
+            fwd, j_old = fresh_resolve(f.quad)
+        z, g, gradj_dev, div_dev, adj_ok = progs.grad(f, fwd)
+        gradj = float(gradj_dev)
+        outer_times.append(_clock(dev) - t_outer)
+        if not fwd.newton.converged:
+            print(f"WARNING: Newton did not converge at iteration {i} "
+                  f"(residual {fwd.newton.residual_norm:.3e})")
+        if not adj_ok:
+            print(f"WARNING: adjoint refinement not converged at "
+                  f"iteration {i}")
+        last_fwd, last_z = fwd, z
+        x_array.append(fwd.x.cpu().numpy())
+        it_run = i + 1
+
+        # gradient check at i == 0
+        if cfg.grad_check and i == 0:
+            gradj0 = float(ctrl_mod.boundary_inner(prob.bq, g, df))
+            grad_check_mod.grad_test(prob, f, df, j_old, gradj0, i,
+                                     out_dir=grad_check_dir)
+
+        # Armijo line search; j_old is the accepted state's J
+        t_inner = _clock(dev)
+        inner = 0
+        if cfg.use_line_search:
+            cond = -cfg.c_armijo * gradj
+            while True:
+                if verbose:
+                    print("line search at " + str(lr))
+                inner += 1
+                f_c, fwd_c, j_dev = progs.probe(f, g, lr)
+                j_new = float(j_dev)
+                if j_old - j_new >= lr * cond:
+                    break
+                new_lr = max(cfg.tau * lr, cfg.LR_MIN)
+                if new_lr == lr:
+                    if verbose:
+                        print("line search floored at LR_MIN; accepting")
+                    break
+                lr = new_lr
+                if inner >= cfg.max_line_search_iters:
+                    # the probe made at the LR before this decrement
+                    if verbose:
+                        print("line search hit safety bound; accepting")
+                    break
+        else:
+            f_c, fwd_c, j_dev = progs.probe(f, g, lr)
+            j_new = float(j_dev)
+        inner_times.append(_clock(dev) - t_inner)
+        inner_iterations.append(inner)
+
+        # control update + records
+        fwd_i = fwd
+        f, fwd, j_old = f_c, fwd_c, j_new
+        j_array.append(float(progs.record(fwd_i.u_values, f.quad)))
+        divs_u.append(float(div_dev))
+
+        if on_iteration is not None:
+            on_iteration(i, f, fwd_i, z, j_array)
+
+        # exits
+        if i > 5 and abs(j_array[i] - j_array[i - 1]) < cfg.conv_crit:
+            if verbose:
+                print("cost small enough")
+            exit_reason = "converged"
+            break
+        elif float(fwd_i.mask.sum()) > escape_threshold:
             if verbose:
                 print("too many buoys out of domain .. exiting")
             exit_reason = "buoy_escape"

@@ -91,7 +91,7 @@ def run(cfg: OCPConfig, write_artifacts: bool = True, verbose: bool = True,
         cfg, prob, f, escape_threshold=10,
         on_iteration=ocp_pipeline._iteration_writer(run_dir, prob, mesh,
                                                     figures),
-        reuse_ls_forward=cfg.reuse_ls_forward,
+        reuse_ls_forward=cfg.reuse_ls_forward, staged=cfg.staged_driver,
         grad_check_dir=(cfg.out_dir if write_artifacts else None),
         verbose=verbose)
 

@@ -56,7 +56,7 @@ def run(cfg: OCPConfig, initial_case: int = 0,
     result = run_gradient_descent(
         cfg, prob, f,
         grad_check_dir=(cfg.out_dir if write_artifacts else None),
-        reuse_ls_forward=cfg.reuse_ls_forward,
+        reuse_ls_forward=cfg.reuse_ls_forward, staged=cfg.staged_driver,
         on_iteration=_iteration_writer(run_dir, prob, mesh, figures),
         verbose=verbose)
 

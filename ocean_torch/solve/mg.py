@@ -349,6 +349,41 @@ class MGSolveResult(NamedTuple):
     b_norm: float                  # ‖b‖ (BC values applied)
 
 
+def refinement_operators(op: Operator, op_c: Optional[Operator],
+                         mg: MGContext, space_f: TaylorHoodSpace,
+                         pre: int = 2, post: int = 2,
+                         coarse_krylov: int = 0, nu_scale: float = 1.0,
+                         matvec_of: Optional[Callable] = None):
+    """(M32, mv64, mv32) of the mixed-precision refinement of op x = b:
+    the float32 block preconditioner, the float64 residual matvec and the
+    float32 Krylov matvec. ``matvec_of`` (op → matvec, the dof-sharded
+    one of ``parallel/dof_sharding.py``) replaces the float64 matvec
+    only; the float32 Krylov matvec is then the element matvec
+    ``op_matvec``, not the stencil (the JAX package's rule)."""
+    M32 = make_block_preconditioner(mg, space_f, op, op_c,
+                                    dtype=torch.float32, pre=pre, post=post,
+                                    coarse_krylov=coarse_krylov,
+                                    nu_scale=nu_scale)
+    if matvec_of is not None:
+        return M32, matvec_of(op), op_matvec(op, torch.float32)
+    mv64 = (op.matvec64 if mg.st_mixed is None
+            else _stencil_or_scatter(mg.st_mixed, op, torch.float64))
+    return M32, mv64, _stencil_or_scatter(mg.st_mixed, op, torch.float32)
+
+
+def refinement_round(b: torch.Tensor, x: torch.Tensor, M32: Callable,
+                     mv64: Callable, mv32: Callable, restart: int = 60,
+                     max_restarts: int = 4, inner_tol: float = 1e-6):
+    """One float64 refinement round: the exact residual b − A x, a
+    float32 FGMRES correction, and the exact residual norm after it.
+    Returns (x', ‖b − A x'‖, FGMRES cycles)."""
+    r = b - mv64(x)
+    sol = krylov.fgmres(mv32, r.to(torch.float32), M=M32, restart=restart,
+                        max_restarts=max_restarts, tol=inner_tol)
+    x = x + sol.x.to(torch.float64)
+    return x, float(torch.linalg.norm(b - mv64(x))), sol.iterations
+
+
 def solve_operator_mg(op: Operator, op_c: Optional[Operator],
                       mg: MGContext, space_f: TaylorHoodSpace,
                       b: torch.Tensor, bc_vals: torch.Tensor,
@@ -359,41 +394,64 @@ def solve_operator_mg(op: Operator, op_c: Optional[Operator],
                       matvec_of: Optional[Callable] = None) -> MGSolveResult:
     """op x = b by mixed-precision FGMRES with the multigrid block
     preconditioner: float32 inner solves inside float64 refinement
-    rounds, each round's residual through the exact float64 matvec, until
-    ‖b − A x‖ ≤ tol·‖b‖ or ``max_rounds``. ``op_c`` (the coarse assembly
-    of the same form) is needed for ``coarse_krylov`` > 0 only.
-
-    ``matvec_of`` (op → matvec, the dof-sharded one of
-    ``parallel/dof_sharding.py``) replaces the float64 refinement matvec
-    only; the float32 Krylov matvec is then the element matvec
-    ``op_matvec``, not the stencil (the JAX package's rule)."""
+    rounds (``refinement_round``), until ‖b − A x‖ ≤ tol·‖b‖ or
+    ``max_rounds``. ``op_c`` (the coarse assembly of the same form) is
+    needed for ``coarse_krylov`` > 0 only; ``matvec_of`` as in
+    ``refinement_operators``."""
     b = apply_bc_vector(b, op.bc_dofs, bc_vals)
-    M32 = make_block_preconditioner(mg, space_f, op, op_c,
-                                    dtype=torch.float32, pre=pre, post=post,
-                                    coarse_krylov=coarse_krylov,
-                                    nu_scale=nu_scale)
-    if matvec_of is not None:
-        mv64 = matvec_of(op)
-        mv32 = op_matvec(op, torch.float32)
-    else:
-        mv64 = (op.matvec64 if mg.st_mixed is None
-                else _stencil_or_scatter(mg.st_mixed, op, torch.float64))
-        mv32 = _stencil_or_scatter(mg.st_mixed, op, torch.float32)
-
+    M32, mv64, mv32 = refinement_operators(
+        op, op_c, mg, space_f, pre=pre, post=post,
+        coarse_krylov=coarse_krylov, nu_scale=nu_scale, matvec_of=matvec_of)
     bnorm = float(torch.linalg.norm(b))
     target = tol * max(bnorm, 1e-300)
     x = torch.zeros_like(b)
     rnorm, rounds, inner = bnorm, 0, 0
     while rnorm > target and rounds < max_rounds:
-        r = b - mv64(x)
-        sol = krylov.fgmres(mv32, r.to(torch.float32), M=M32,
-                            restart=restart, max_restarts=max_restarts,
-                            tol=inner_tol)
-        x = x + sol.x.to(torch.float64)
-        rnorm = float(torch.linalg.norm(b - mv64(x)))
+        x, rnorm, cycles = refinement_round(b, x, M32, mv64, mv32, restart,
+                                            max_restarts, inner_tol)
         rounds += 1
-        inner += sol.iterations
+        inner += cycles
     return MGSolveResult(x, rnorm, inner, rnorm <= target, rounds, bnorm)
+
+
+def bc_residual_fn(residual_fn: Callable[[torch.Tensor], torch.Tensor],
+                   bc_dofs: torch.Tensor, bc_vals: torch.Tensor, n: int
+                   ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """w → the residual with its Dirichlet rows replaced by w − g."""
+    dev = bc_vals.device
+    is_bc = torch.zeros(n, dtype=torch.bool, device=dev)
+    is_bc[bc_dofs] = True
+    g_full = torch.zeros(n, dtype=torch.float64,
+                         device=dev).index_copy(0, bc_dofs, bc_vals)
+    return lambda w: torch.where(is_bc, w - g_full, residual_fn(w))
+
+
+def newton_step_mg(op: Operator, bc_residual: Callable, M32: Callable,
+                   mg: MGContext, w: torch.Tensor, r: torch.Tensor,
+                   rnorm: float, tol: float, restart: int = 60,
+                   max_restarts: int = 4,
+                   matvec_of: Optional[Callable] = None):
+    """One Newton step on the Jacobian ``op`` at w: a float32 FGMRES solve
+    of op·dw = −r preconditioned by ``M32``, then residual-monotone
+    damping with the full step preferred (θ = 1, ½, ¼, ⅛: the first that
+    lowers ‖r‖, else the full step). ``matvec_of`` (op → matvec, in the
+    dtype of its input) replaces the Krylov matvec. Returns (w', r',
+    ‖r'‖, FGMRES cycles)."""
+    mv32 = (_stencil_or_scatter(mg.st_mixed, op, torch.float32)
+            if matvec_of is None else matvec_of(op))
+    sol = krylov.fgmres(mv32, (-r).to(torch.float32), M=M32,
+                        restart=restart, max_restarts=max_restarts, tol=tol)
+    dw = sol.x.to(torch.float64)
+    best = None
+    for theta in (1.0, 0.5, 0.25, 0.125):
+        cand = w + theta * dw
+        r_c = bc_residual(cand)
+        n_c = float(torch.linalg.norm(r_c))
+        if best is None:
+            best = (cand, r_c, n_c)
+        if n_c < rnorm:
+            return cand, r_c, n_c, sol.iterations
+    return (*best, sol.iterations)
 
 
 def newton_solve_mg(residual_fn: Callable[[torch.Tensor], torch.Tensor],
@@ -415,20 +473,13 @@ def newton_solve_mg(residual_fn: Callable[[torch.Tensor], torch.Tensor],
     The block preconditioner is built once at w0 (a Stokes preconditioner
     for w0 = 0) and reused by every step: each step's matvec is the exact
     current Jacobian and the test is the exact float64 residual, so
-    staleness costs Krylov iterations, not accuracy. A step is damped
-    (θ = 1, ½, ¼, ⅛, the first that lowers ‖r‖, else the full step).
-    After the test passes, ``polish`` more steps with a Krylov tolerance
-    of min(step_tol, 1e-8) push the residual well below it; they count as
-    iterations. ``krylov_cycles`` lists each step's FGMRES cycles.
-    ``matvec_of`` (op → matvec, in the dtype of its input) replaces the
-    Krylov matvec of every step."""
-    is_bc = torch.zeros(w0.shape[0], dtype=torch.bool, device=w0.device)
-    is_bc[bc_dofs] = True
-    g_full = torch.zeros_like(w0).index_copy(0, bc_dofs, bc_vals)
-
-    def bc_residual(w):
-        return torch.where(is_bc, w - g_full, residual_fn(w))
-
+    staleness costs Krylov iterations, not accuracy. A step is damped as
+    ``newton_step_mg`` says. After the test passes, ``polish`` more steps
+    with a Krylov tolerance of min(step_tol, 1e-8) push the residual well
+    below it; they count as iterations. ``krylov_cycles`` lists each
+    step's FGMRES cycles. ``matvec_of`` (op → matvec, in the dtype of its
+    input) replaces the Krylov matvec of every step."""
+    bc_residual = bc_residual_fn(residual_fn, bc_dofs, bc_vals, w0.shape[0])
     op0 = operator_fn(w0)
     op0_c = coarse_operator_fn(w0) if coarse_operator_fn is not None else None
     M32 = make_block_preconditioner(mg, space_f, op0, op0_c,
@@ -438,24 +489,11 @@ def newton_solve_mg(residual_fn: Callable[[torch.Tensor], torch.Tensor],
     cycles: List[int] = []
 
     def step(w, r, rnorm, tol):
-        op = operator_fn(w)
-        mv32 = (_stencil_or_scatter(mg.st_mixed, op, torch.float32)
-                if matvec_of is None else matvec_of(op))
-        sol = krylov.fgmres(mv32, (-r).to(torch.float32), M=M32,
-                            restart=restart, max_restarts=max_restarts,
-                            tol=tol)
-        cycles.append(sol.iterations)
-        dw = sol.x.to(torch.float64)
-        best = None
-        for theta in (1.0, 0.5, 0.25, 0.125):
-            cand = w + theta * dw
-            r_c = bc_residual(cand)
-            n_c = float(torch.linalg.norm(r_c))
-            if best is None:
-                best = (cand, r_c, n_c)
-            if n_c < rnorm:
-                return cand, r_c, n_c
-        return best
+        w, r, rnorm, n_cyc = newton_step_mg(
+            operator_fn(w), bc_residual, M32, mg, w, r, rnorm, tol,
+            restart=restart, max_restarts=max_restarts, matvec_of=matvec_of)
+        cycles.append(n_cyc)
+        return w, r, rnorm
 
     r = bc_residual(w0)
     r0norm = float(torch.linalg.norm(r))

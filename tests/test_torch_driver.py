@@ -112,7 +112,8 @@ def test_reuse_ls_forward_changes_nothing_but_the_solves(setup, monkeypatch):
     calls = []
     real = system.forward
     monkeypatch.setattr(system, "forward",
-                        lambda p, q: calls.append(1) or real(p, q))
+                        lambda p, q, **kw: calls.append(1) or real(p, q,
+                                                                   **kw))
     runs = {}
     for reuse in (True, False):
         calls.clear()

@@ -63,31 +63,32 @@ def test_floored_lr_exit_of_the_search(setup):
 
 
 def test_safety_bound_follows_the_per_stage_loop(setup):
-    """max_line_search_iters = 1: the control is updated with the LR after
-    the last decrement (500), as the JAX per-stage loop does; its staged
-    loop updates with the probed LR (1000) and is not the reference
-    here."""
+    """max_line_search_iters = 1: the per-stage loop (``staged=False``)
+    updates the control with the LR after the last decrement (500), as
+    the JAX per-stage loop does; the staged loop updates with the probed
+    LR (1000), ``tests/test_torch_staged.py``."""
     kw = dict(use_line_search=True, num_steps=2, LR=1000.0,
               max_line_search_iters=1)
-    rj, rt = _both(setup, kw, dict(staged=False, reuse_ls_forward=True))
+    rj, rt = _both(setup, kw, dict(staged=False, reuse_ls_forward=True),
+                   dict(staged=False))
     _compare(rj, rt)
     assert rt.inner_iterations[0] == 1 and rt.lr < 1000.0
 
 
-def test_stale_lu_resolve(setup, monkeypatch):
-    """A chord Newton whose residual is not finite is re-solved with
-    newton_reuse_lu=False; the run's records are those of a clean run."""
+def _stale_lu_run(setup, monkeypatch, staged):
+    """A run whose first chord Newton is made non-finite, beside a clean
+    run: (the newton_reuse_lu of each forward, the run, the clean run)."""
     _, pt, _, ft = setup
     pt = dataclasses.replace(pt, newton_reuse_lu=True)
     cfg = OCPConfig(**BASE, use_line_search=False, num_steps=2, LR=5.0,
                     newton_reuse_lu=True)
-    clean = run_gradient_descent(cfg, pt, ft, verbose=False)
+    clean = run_gradient_descent(cfg, pt, ft, verbose=False, staged=staged)
     real = system.forward
     seen = []
 
-    def faulty(prob, f_quad):
+    def faulty(prob, f_quad, **kw):
         seen.append(prob.newton_reuse_lu)
-        fwd = real(prob, f_quad)
+        fwd = real(prob, f_quad, **kw)
         if prob.newton_reuse_lu and len(seen) == 1:
             fwd = fwd._replace(
                 w=fwd.w * float("nan"),
@@ -96,11 +97,26 @@ def test_stale_lu_resolve(setup, monkeypatch):
         return fwd
 
     monkeypatch.setattr(system, "forward", faulty)
-    res = run_gradient_descent(cfg, pt, ft, verbose=False)
-    assert seen == [True, False, True]        # faulty, fresh, iteration 1
+    res = run_gradient_descent(cfg, pt, ft, verbose=False, staged=staged)
     assert all(math.isfinite(j) for j in res.j_array)
     assert _rel(res.j_array, clean.j_array) < 1e-10
     assert _rel(res.f.quad, clean.f.quad) < 1e-8
+    return seen
+
+
+def test_stale_lu_resolve(setup, monkeypatch):
+    """A chord Newton whose residual is not finite is re-solved with
+    newton_reuse_lu=False; the run's records are those of a clean run.
+    The staged loop (the default) takes one forward a probe, the last
+    iteration's too."""
+    seen = _stale_lu_run(setup, monkeypatch, staged=True)
+    assert seen == [True, False, True, True]   # faulty, fresh, 2 probes
+
+
+def test_stale_lu_resolve_per_stage(setup, monkeypatch):
+    """The same in the per-stage loop: one forward an iteration."""
+    seen = _stale_lu_run(setup, monkeypatch, staged=False)
+    assert seen == [True, False, True]        # faulty, fresh, iteration 1
 
 
 def test_grad_check_at_iteration_0_matches_jax(setup, tmp_path):
