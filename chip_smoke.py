@@ -13,11 +13,13 @@ Phases, in order; any failure exits non-zero before the last line:
    gather slots and the primal ODE's staging rows). The primal ODE also
    asks for dynamic shared memory at launch, for the velocity image where
    it fits; phase 4 prints those bytes;
-3. setup at the scalability configuration of ``bench.py::_build`` (unit
-   square [0,2]², Nx=32, K=10⁴ buoys, nt=200, line search off, dense
-   solver, chord Newton on the Stokes factor, CUDA ODE and point-source
-   kernels): synthesize u_d (cached in ``data/ud_torch/``), build the
-   problem, and run one warm-up GD step whose state feeds phase 4;
+3. setup at path 1's configuration, the scalability configuration
+   (unit square [0,2]², Nx=32, K=10⁴ buoys, nt=200, line search off,
+   dense solver, chord Newton on the Stokes factor, CUDA ODE and
+   point-source kernels; ``bench.py::_build`` adds
+   ``dense_apply="inverse"``: path 10c's "inverse" variant and path 14a):
+   synthesize u_d (cached in ``data/ud_torch/``), build the problem, and
+   run one warm-up GD step whose state feeds phase 4;
 4. each kernel against its plain PyTorch version on the same inputs at
    the main path's shapes: maximum error against the stated tolerance,
    kernel and plain times (CUDA events), the two ODE kernels and the
@@ -216,7 +218,25 @@ Phases, in order; any failure exits non-zero before the last line:
     dofs, 4 levels, CG projection), 2 iterations from LR 1 with up to 12
     adjoint rounds: J within 1e-6 of the TPU record, adjoint rounds and
     final relative residual beside the record's, the peak device memory,
-    kernels 1–3 on the last state.
+    kernels 1–3 on the last state;
+23. path 14, the benchmark and the production entry points, each through
+    the function its command line calls. 14a: ``bench_torch.main`` (the
+    headline line of ``bench.py``: ``bench.py::_build``'s problem, a
+    warm-up and 3 timed steps): counts set to 0 before and read after
+    (kernels 1–3 once a step, 4 and 5 never), J equal bit for bit to
+    path 10c's ``dense_apply="inverse"`` step. 14b:
+    ``bench_torch.stages_main`` into a temporary directory: bench.py's
+    keys, every value finite. 14c: ``bench_torch.multi_k_main``: the
+    per-K envelope against the reference CPU (K = 10, 100, 400, 10⁴; at
+    K = 10 and 100 ``gd_multi_step`` over 20 iterations), one line a K,
+    the multi-step J equal to the host loop's (difference 0.0). 14d:
+    ``scripts/flagship_refresh_torch.py`` for the record's 30 iterations,
+    with the record as the previous run: exit "num_steps", the record's
+    probes, every J within 1e-6 relative of ``results/flagship_10k/``,
+    the launch counts its probes imply. 14e:
+    ``scripts/lshape_production_torch.py``: the record's 28 iterations to
+    the convergence exit, J within 1e-6 and probes equal to
+    ``results/lshape_res50/``, the last |ΔJ| beside the record's.
 Phase 4 also runs the hard inputs of the "left" diagonal and the pipes.
 Path 3 runs with ``dense_apply="inverse"`` (``limits.run``'s fast paths,
 as in the JAX package).
@@ -225,7 +245,7 @@ The line before the last is the kernels' JSON record, one entry per
 kernel and geometry (``geometry``), with the launches of paths 1–2 and
 ``launches_path3``, ``_path4``, ``_path8``, ``_path11`` (the counted
 sharded steps of 11a and, for the segment sum, 11b), ``_path12`` (12a's
-counted ``gd_multi_step``) and ``_path13``; the last line is
+counted ``gd_multi_step``), ``_path13`` and ``_path14``; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
@@ -2176,17 +2196,19 @@ def path10b_hires(card: str) -> list:
     return j_10b
 
 
-def path10c_float32(cfg, u_d, x0, f, lr, res1, card: str) -> None:
+def path10c_float32(cfg, u_d, x0, f, lr, res1, card: str) -> dict:
     """10c: path 1's configuration and control with the float32 knobs:
     ``dense_apply="inverse"``, ``newton_chord_f32`` on float32 LU
     factors, and both; one GD step each against path 1's (``res1``): J
     within 1e-9 relative, f_new within 1e-8·max|f_new| (the JAX package's
-    bounds); then the median of 3 steps and the stages."""
+    bounds); then the median of 3 steps and the stages. Returns each
+    variant's J by tag ("inverse" is ``bench.py::_build``'s step)."""
     import torch
     from ocean_torch import system
 
     dev = torch.device("cuda")
     scale = float(res1.f_new.quad.abs().max())
+    js = {}
     for name, tag, kw in (
             ("dense_apply=inverse", "inverse", dict(dense_apply="inverse")),
             ("newton_chord_f32", "chord_f32", dict(newton_chord_f32=True)),
@@ -2196,6 +2218,7 @@ def path10c_float32(cfg, u_d, x0, f, lr, res1, card: str) -> None:
                                     x0=x0, device=dev)
         res, _ = run_path(f"path 10c ({name})", prob, f, lr, PATH1,
                           f"gd_iteration_seconds_10000_buoys_{tag}", card)
+        js[tag] = float(res.J)
         dj = abs(float(res.J) - float(res1.J)) / abs(float(res1.J))
         dq = float((res.f_new.quad - res1.f_new.quad).abs().max()) / scale
         check(dj < 1e-9 and dq < 1e-8,
@@ -2208,6 +2231,7 @@ def path10c_float32(cfg, u_d, x0, f, lr, res1, card: str) -> None:
               flush=True)
         print_stages(f"path 10c ({name})", prob, f, lr)
         del prob
+    return js
 
 
 # --- path 11: the sharded steps and gen-1 ------------------------------------
@@ -3108,6 +3132,246 @@ def path13d_nx256(u_d, x0, card: str):
     return records, counts
 
 
+# --- path 14: the benchmark and the production entry points -----------------
+#
+# The JAX package's production records on its TPU: results/flagship_10k/
+# (J_array.npy; timings.txt: 12 probes at iteration 0, then 1 each; 30
+# iterations, exit "num_steps") and results/lshape_res50/ (J_array.npy: 28
+# iterations of one probe each, stopped on the driver's convergence exit,
+# |J₂₇ − J₂₆| = 9.9e-4 < conv_crit 1e-3). The script reads nothing under
+# ``results/``: the values stand here, and tests/test_torch_bench.py holds
+# them to the files.
+FLAGSHIP_J = (
+    28.92400479679003, 5.975766158515137, 3.0751862795488005,
+    2.319831947108554, 1.8621785397980997, 1.52399324357724,
+    1.2663500924924804, 1.0686587547620015, 0.9163450100453474,
+    0.7985129737986334, 0.7069530245161371, 0.6354509640262123,
+    0.5792922403186018, 0.5348914121595776, 0.49951657118216763,
+    0.47108246871821, 0.44799502093998633, 0.4290339400006302,
+    0.4132639325649059, 0.39996733974777987, 0.38859293401044015,
+    0.378716917411393, 0.37001317070654594, 0.36223051655256144,
+    0.3551753310534318, 0.3486982195080266, 0.3426838025935659,
+    0.3370428761697246, 0.33170639233326504, 0.32662082987468466)
+FLAGSHIP_PROBES = (12, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1,
+                   1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1)
+LSHAPE_J = (
+    0.3233596950649691, 0.2914594033529099, 0.26356135999798,
+    0.23915301465517258, 0.21779364767467513, 0.19910105388578714,
+    0.18274192442942794, 0.16842522819943717, 0.15589624565396737,
+    0.14493199621592012, 0.1353372649669945, 0.12694109587628688,
+    0.11959384198133904, 0.11316460761723457, 0.10753882737893439,
+    0.10261616186876116, 0.09830880672137221, 0.09453993246384723,
+    0.09124230837441605, 0.08835708142090004, 0.08583273204167496,
+    0.08362418110955172, 0.08169198028522301, 0.08000159406951202,
+    0.0785228030831282, 0.07722915615399839, 0.0760974986072287,
+    0.07510755994627477)
+LSHAPE_PROBES = (1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1,
+                 1, 1, 1, 1, 1, 1, 1, 1)
+RECORD_RTOL = 1e-6
+# bench.py's output keys (tests/test_torch_bench.py holds them to it)
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline")
+STAGE_KEYS = ("ns_newton_solve", "primal_ode_scan", "gradu_projection",
+              "adjoint_ode", "point_sources", "adjoint_assemble_solve",
+              "micro_eval_p1_tensor_2e6pts", "micro_eval_velocity_2e6pts")
+STAGES_OUT_KEYS = ("K", "ndof", "backend", "stages_seconds",
+                   "stages_sum_seconds", "full_fused_gd_iteration_seconds",
+                   "lu_tflops_est", "note")
+
+
+def record_probes(out: Path) -> tuple:
+    """The probe count of each iteration in a run's ``timings.txt``."""
+    return tuple(int(line.split(":")[1])
+                 for line in (out / "timings.txt").read_text().splitlines()
+                 if "inner loop iterations" in line)
+
+
+def record_gaps(name: str, out: Path, record: tuple, probes: tuple):
+    """A production run written into ``out`` against the JAX package's
+    record: the same number of iterations, every J within RECORD_RTOL
+    relative and the same probe counts. Returns the J array and the
+    relative gaps."""
+    import numpy as np
+    j = np.load(out / "J_array.npy")
+    got = record_probes(out)
+    n = min(len(j), len(record))
+    rec = np.asarray(record[:n])
+    gaps = np.abs(j[:n] - rec) / np.abs(rec)
+    print(f"{name}: J={j.tolist()!r} probes={list(got)} largest relative "
+          f"gap to the record {float(gaps.max())!r} (iteration "
+          f"{int(gaps.argmax())})", flush=True)
+    check(len(j) == len(record), f"{name}: {len(j)} iterations, the record "
+          f"{len(record)}")
+    check(float(gaps.max()) < RECORD_RTOL, f"{name}: J off the record by "
+          f"{float(gaps.max())}")
+    check(got == probes, f"{name}: probes {got}, the record {probes}")
+    return j, gaps
+
+
+def path14_entry_points(j_10c: dict, card: str) -> dict:
+    """Path 14: ``bench_torch.py`` (the headline, ``--stages``,
+    ``--multi-k``) and the two production scripts at full length, through
+    the functions a user's command line calls. Returns the launches of
+    the whole path."""
+    import contextlib
+    import io
+    import math
+    import os
+    import tempfile
+    import numpy as np
+    import torch
+    from ocean_torch import kernels
+
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import bench_torch
+    import flagship_refresh_torch
+    import lshape_production_torch
+
+    os.environ["BENCH_ITERS"] = "3"
+    os.environ.pop("BENCH_PROFILE_DIR", None)
+    os.environ.pop("LSHAPE_STEPS", None)
+    total = dict.fromkeys(kernels.LAUNCHES, 0)
+    t14 = time.perf_counter()
+
+    # --- 14a. the headline: one warm-up and 3 timed steps ------------------
+    kernels.reset_launch_counts()
+    rec, res = bench_torch.main()
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    total = add_counts(total, counts)
+    steps = 1 + 3
+    want = {"primal_ode": steps, "adjoint_ode": steps,
+            "point_sources": steps, "p1_eval": 0, "segment_sum": 0}
+    check(counts == want, f"path 14a: launches {counts}, expected {want}")
+    check(tuple(rec) == BENCH_KEYS and rec["metric"] ==
+          "gd_iteration_seconds_10000_buoys"
+          and rec["vs_baseline"] == bench_torch.BASELINE_SECONDS
+          / rec["value"], f"path 14a: record {rec}")
+    j = float(res.J)
+    check(j == j_10c["inverse"], f"path 14a: J {j!r}, path 10c's "
+          f"dense_apply=\"inverse\" step {j_10c['inverse']!r}")
+    print(f"path 14a (bench_torch.main): J={j!r} equal bit for bit to path "
+          f"10c's dense_apply=\"inverse\" step; launches {counts}; "
+          f"gd_iteration_seconds_10000_buoys {rec['value']!r} vs_baseline "
+          f"{rec['vs_baseline']!r} on {card}", flush=True)
+    del res
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # --- 14b. the stages ------------------------------------------------
+        kernels.reset_launch_counts()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            out = bench_torch.stages_main(tmp)
+        total = add_counts(total, kernels.launch_counts())
+        on_disk = json.loads((Path(tmp) / "stages.json").read_text())
+        numbers = list(out["stages_seconds"].values()) + [
+            out[k] for k in ("stages_sum_seconds",
+                             "full_fused_gd_iteration_seconds",
+                             "lu_tflops_est")]
+        check(tuple(out) == STAGES_OUT_KEYS
+              and tuple(out["stages_seconds"]) == STAGE_KEYS
+              and on_disk == out and out["backend"] == card
+              and all(math.isfinite(v) and v > 0 for v in numbers),
+              f"path 14b: stages record {out}")
+        print(f"path 14b (bench_torch.stages_main): {json.dumps(out)}",
+              flush=True)
+
+        # --- 14c. the per-K envelope ----------------------------------------
+        kernels.reset_launch_counts()
+        env = bench_torch.multi_k_main(tmp)
+        total = add_counts(total, kernels.launch_counts())
+        check(tuple(env) == tuple(bench_torch.K_BASELINES)
+              and json.loads((Path(tmp) / "multi_k.json").read_text())
+              == env, f"path 14c: cells {list(env)}")
+        for k_exp, cell in env.items():
+            am = ""
+            if "seconds_amortized" in cell:
+                diff = cell["scan_vs_host_J_max_rel_diff_3it"]
+                check(diff == 0.0, f"path 14c {k_exp}: gd_multi_step J "
+                      f"differs from the host loop by {diff}")
+                am = (f", amortized over {cell['amortized_steps']} "
+                      f"{cell['seconds_amortized']!r} s (x"
+                      f"{cell['vs_baseline_amortized']!r}), multi-step vs "
+                      f"host J difference {diff!r}")
+            print(f"path 14c envelope K={k_exp.split('_')[0]}: "
+                  f"{cell['seconds']!r} s (x{cell['vs_baseline']!r}) "
+                  f"against the reference CPU's {cell['baseline_seconds']} "
+                  f"s{am} on {card}", flush=True)
+    # what the amortized cells iterate: the host loop's first 3 steps
+    # without line search from the benchmark's control
+    from ocean_torch import system
+    for k_exp in bench_torch.AMORTIZE:
+        _, prob_k, f_k, lr_k = bench_torch._build(k_exp)
+        steps = []
+        for _ in range(3):
+            r = system.gd_step(prob_k, f_k, lr_k)
+            steps.append((float(r.J), r.diverged, int(r.fwd.mask.sum())))
+            f_k = r.f_new
+        print(f"path 14c {k_exp}: the host loop's (J, diverged, escaped) "
+              f"{steps!r}", flush=True)
+        del prob_k, f_k, r
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # --- 14d. the flagship at full length -------------------------------
+        out = Path(tmp) / "flagship"
+        out.mkdir()
+        # the record as the previous run, for the script's comparison
+        np.save(out / "J_array.npy", np.asarray(FLAGSHIP_J))
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            summary = flagship_refresh_torch.main(
+                ["--iters", "30", "--out", str(out)])
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        total = add_counts(total, counts)
+        print(f"path 14d (scripts/flagship_refresh_torch.py, 30 "
+              f"iterations): {time.perf_counter() - t0:.2f} s with set-up "
+              f"and artifacts; summary {json.dumps(summary)}", flush=True)
+        check(summary["iterations_run"] == 30
+              and summary["exit_reason"] == "num_steps",
+              f"path 14d: {summary['iterations_run']} iterations, exit "
+              f"{summary['exit_reason']}")
+        _, gaps = record_gaps("path 14d", out, FLAGSHIP_J, FLAGSHIP_PROBES)
+        check(summary["J_vs_previous_run_max_rel_diff"] == float(gaps.max()),
+              "path 14d: the script's comparison with the previous run "
+              "differs from the record's gap")
+        forwards = 1 + sum(FLAGSHIP_PROBES)
+        want = {"primal_ode": forwards, "adjoint_ode": 30,
+                "point_sources": 30, "p1_eval": 0, "segment_sum": 0}
+        check(counts == want, f"path 14d: launches {counts}, expected {want}")
+
+        # --- 14e. the L-shape to its convergence exit -----------------------
+        out = Path(tmp) / "lshape"
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            res_l = lshape_production_torch.main(["--out", str(out)])
+        total = add_counts(total, kernels.launch_counts())
+        print(f"path 14e (scripts/lshape_production_torch.py): "
+              f"{buf.getvalue().strip().splitlines()[-1]} "
+              f"({time.perf_counter() - t0:.2f} s)", flush=True)
+        j = res_l.j_array
+        print(f"path 14e: exit {res_l.exit_reason} after "
+              f"{res_l.iterations_run} iterations; the last |ΔJ| "
+              f"{abs(j[-1] - j[-2])!r}, the one before "
+              f"{abs(j[-2] - j[-3])!r}, beside the record's "
+              f"{abs(LSHAPE_J[27] - LSHAPE_J[26])!r} and "
+              f"{abs(LSHAPE_J[26] - LSHAPE_J[25])!r} (conv_crit 1e-3)",
+              flush=True)
+        record_gaps("path 14e", out, LSHAPE_J, LSHAPE_PROBES)
+        check(res_l.iterations_run == len(LSHAPE_J)
+              and res_l.exit_reason == "converged",
+              f"path 14e: {res_l.iterations_run} iterations, exit "
+              f"{res_l.exit_reason}; the record stopped converged after "
+              f"{len(LSHAPE_J)}")
+
+    print(f"path 14: {time.perf_counter() - t14:.2f} s, launches {total} on "
+          f"{card}", flush=True)
+    return total
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3452,7 +3716,7 @@ def main() -> int:
         golden_records, counts_p10a = path10a_golden(tmp, card)
     domain_records += golden_records
     j_10b = path10b_hires(card)
-    path10c_float32(cfg, u_d, x0, f, lr, res1, card)
+    j_10c = path10c_float32(cfg, u_d, x0, f, lr, res1, card)
 
     # --- 20. path 11: the sharded steps and gen-1 ---------------------------
     counts_p11, multi = path11_sharded(cfg, prob, f, lr, res1, f2, res2, card)
@@ -3483,6 +3747,9 @@ def main() -> int:
     print(f"path 13: {time.perf_counter() - t13:.2f} s, launches "
           f"{counts_p13} on {card}", flush=True)
 
+    # --- 23. path 14: the benchmark and the production entry points --------
+    counts_p14 = path14_entry_points(j_10c, card)
+
     launches = {n: counts1[n] for n in PATH1}
     launches.update({n: counts2[n] for n in PATH2 if n not in PATH1})
     launches["p1_eval"] = counts3["p1_eval"]
@@ -3494,6 +3761,7 @@ def main() -> int:
         rec["launches_path11"] = counts_p11[rec["name"]]
         rec["launches_path12"] = multi["launches"][rec["name"]]
         rec["launches_path13"] = counts_p13[rec["name"]]
+        rec["launches_path14"] = counts_p14[rec["name"]]
         rec["geometry"] = RECTANGLE
     print(json.dumps({"kernels": records + domain_records}))
     print(json.dumps({"ok": True, "device": {

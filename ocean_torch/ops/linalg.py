@@ -97,8 +97,13 @@ class InvSolver:
 
 
 def factorize(a: torch.Tensor, dtype=torch.float64) -> LUSolver:
-    """LU-factorize a dense matrix in ``dtype`` (float64 by default)."""
-    lu, piv = torch.linalg.lu_factor(a.to(dtype))
+    """LU-factorize a dense matrix in ``dtype`` (float64 by default).
+
+    A singular or non-finite matrix (the operator at a diverged Newton
+    state) gives factors whose solves are non-finite, as in the JAX
+    package, and does not raise: the callers' residual checks report it
+    (``GDStepResult.diverged``). No host sync for the error check."""
+    lu, piv, _ = torch.linalg.lu_factor_ex(a.to(dtype))
     return LUSolver(lu, piv)
 
 

@@ -150,3 +150,21 @@ def test_inverse_gd_step_against_lu_and_jax(data, problems, steps):
                             jnp.asarray(1.0))
     assert abs(float(s_inv.J) - float(sj.J)) < 1e-12 * abs(float(sj.J))
     assert s_inv.fwd.newton.iterations == int(sj.fwd.newton.iterations)
+
+
+@pytest.mark.parametrize("fill", [0.0, float("nan")])
+def test_singular_factorization_is_non_finite_like_jax(fill):
+    """A singular or non-finite operator (the adjoint operator at a
+    diverged Newton state) factorizes without raising, as in the JAX
+    package, and its solves are non-finite where JAX's are: the caller's
+    ``diverged`` flag reports it."""
+    a = np.full((4, 4), fill)
+    b = np.ones(4)
+    fac = linalg.factorize(torch.as_tensor(a), torch.float32)
+    fac_j = jax_linalg.factorize(jnp.asarray(a))
+    for got, want in ((fac.solve(torch.as_tensor(b)), fac_j.solve32(b)),
+                      (fac.solve_t(torch.as_tensor(b)), fac_j.solve32_t(b))):
+        got, want = got.numpy(), np.asarray(want)
+        assert not np.isfinite(got).any()
+        assert np.array_equal(np.isnan(got), np.isnan(want))
+        assert np.array_equal(got, want, equal_nan=True)
