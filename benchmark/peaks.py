@@ -1,0 +1,5 @@
+"""Published peaks of one NVIDIA H100 SXM (NVIDIA's data sheet, dense
+rates, at the full 700 W power limit)."""
+
+HBM_BYTES_PER_S = 3.35e12       # HBM3
+FP64_TENSOR_FLOP_PER_S = 67e12  # FP64 on the tensor cores
