@@ -22,6 +22,7 @@ from ..fem.interpolate import p2_basis
 from ..mesh.locate import in_domain, locate_points
 from ..ops.scatter import (binned_segment_sum, sorted_segment_sum,
                            ozaki_segment_sum)
+from ..utils import timing
 
 _SEGMENT_SUMS = {"binned": binned_segment_sum, "sorted": sorted_segment_sum,
                  "ozaki": ozaki_segment_sum,
@@ -33,7 +34,8 @@ def _u_center(space: TaylorHoodSpace, u: torch.Tensor,
     """(cell, P2 basis values, u) at the domain center."""
     cell_c, xi_c, _ = locate_points(space.locator, center[None, :])
     phi_c = p2_basis(xi_c)[0]
-    u_c = torch.einsum("a,ai->i", phi_c, u[space.cell_dofs_p2[cell_c[0]]])
+    u_c = torch.einsum("a,ai->i", phi_c,
+                       u[space.cell_dofs_p2[timing.to_host(cell_c[0])]])
     return cell_c[0], phi_c, u_c
 
 

@@ -43,6 +43,7 @@ from .. import system as sys_mod
 from ..config import OCPConfig
 from ..control import Control
 from ..fem import assemble
+from ..utils import timing
 from . import grad_check as grad_check_mod
 
 
@@ -65,11 +66,11 @@ class GDRunResult:
 
 def _clock(device: torch.device) -> float:
     """The host clock once the device has finished what was queued."""
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    timing.sync(device)
     return time.perf_counter()
 
 
+@timing.span("gd_job")
 def run_gradient_descent(cfg: OCPConfig, prob: "sys_mod.OCPProblem",
                          f: Control,
                          escape_threshold: Optional[float] = None,
@@ -96,7 +97,9 @@ def run_gradient_descent(cfg: OCPConfig, prob: "sys_mod.OCPProblem",
 
     ``staged=True`` (default) runs the staged loop (``_run_gd_staged``),
     which implies the ``reuse_ls_forward`` trade; ``staged=False`` or
-    ``reuse_ls_forward=False`` the per-stage loop."""
+    ``reuse_ls_forward=False`` the per-stage loop. The whole run is the
+    span ``gd_job``, each iteration a ``gd_iteration``
+    (``utils/timing.py``)."""
     if escape_threshold is None:
         escape_threshold = prob.K / 2
     if df is None:
@@ -119,97 +122,106 @@ def run_gradient_descent(cfg: OCPConfig, prob: "sys_mod.OCPProblem",
     fwd_next = None
 
     for i in range(cfg.num_steps):
-        if verbose:
-            print(f"Gradient descent iteration: {i}")
-        t_outer = _clock(dev)
-        fwd = (fwd_next if fwd_next is not None
-               else sys_mod.forward(prob, f.quad))
-        fwd_next = None
-        if (prob.newton_reuse_lu
-                and not math.isfinite(fwd.newton.residual_norm)):
+        with timing.span("gd_iteration", i=i):
             if verbose:
-                print("fast-path Newton diverged; re-solving with "
-                      "fresh factorizations")
-            fwd = sys_mod.forward(
-                dataclasses.replace(prob, newton_reuse_lu=False), f.quad)
-        z, adj_ok = sys_mod._solve_adjoint_flagged(prob, fwd)
-        g = sys_mod.reduced_gradient(prob, f, z)
-        outer_times.append(_clock(dev) - t_outer)
-        if not fwd.newton.converged:
-            print(f"WARNING: Newton did not converge at iteration {i} "
-                  f"(residual {fwd.newton.residual_norm:.3e})")
-        if not adj_ok:
-            print(f"WARNING: adjoint refinement not converged at "
-                  f"iteration {i}")
-        last_fwd, last_z = fwd, z
-        x_array.append(fwd.x.cpu().numpy())
-        it_run = i + 1
-
-        # gradient check at i == 0
-        if cfg.grad_check and i == 0:
-            gradj0 = float(ctrl_mod.boundary_inner(prob.bq, g, df))
-            j0 = float(sys_mod.cost(prob, fwd.u_values, f.quad))
-            grad_check_mod.grad_test(prob, f, df, j0, gradj0, i,
-                                     out_dir=grad_check_dir)
-
-        # Armijo line search
-        t_inner = _clock(dev)
-        inner = 0
-        if cfg.use_line_search:
-            df = Control(-g.quad, -g.p2)
-            gradj = float(ctrl_mod.boundary_inner(prob.bq, g, df))
-            cond = -cfg.c_armijo * gradj
-            j_old = float(sys_mod.cost(prob, fwd.u_values, f.quad))
-            while True:
+                print(f"Gradient descent iteration: {i}")
+            t_outer = _clock(dev)
+            fwd = (fwd_next if fwd_next is not None
+                   else sys_mod.forward(prob, f.quad))
+            fwd_next = None
+            if (prob.newton_reuse_lu
+                    and not math.isfinite(fwd.newton.residual_norm)):
                 if verbose:
-                    print("line search at " + str(lr))
-                inner += 1
-                f_ls_quad = f.quad + lr * df.quad
-                fwd_ls = sys_mod.forward(prob, f_ls_quad)
-                j_new = float(sys_mod.cost(prob, fwd_ls.u_values, f_ls_quad))
-                if j_old - j_new >= lr * cond:
-                    if reuse_ls_forward:
-                        # accepted probe control == updated control exactly
-                        fwd_next = fwd_ls
-                    break
-                new_lr = max(cfg.tau * lr, cfg.LR_MIN)
-                if new_lr == lr:
-                    # floored at LR_MIN: re-probing is the identical solve;
-                    # accept after the one failed probe
+                    print("fast-path Newton diverged; re-solving with "
+                          "fresh factorizations")
+                fwd = sys_mod.forward(
+                    dataclasses.replace(prob, newton_reuse_lu=False), f.quad)
+            z, adj_ok = sys_mod._solve_adjoint_flagged(prob, fwd)
+            g = sys_mod.reduced_gradient(prob, f, z)
+            outer_times.append(_clock(dev) - t_outer)
+            if not fwd.newton.converged:
+                print(f"WARNING: Newton did not converge at iteration {i} "
+                      f"(residual {fwd.newton.residual_norm:.3e})")
+            if not adj_ok:
+                print(f"WARNING: adjoint refinement not converged at "
+                      f"iteration {i}")
+            last_fwd, last_z = fwd, z
+            with timing.span("trajectory_copy",
+                             bytes=fwd.x.numel() * fwd.x.element_size()):
+                x_array.append(timing.to_host(fwd.x))
+            it_run = i + 1
+
+            # gradient check at i == 0
+            if cfg.grad_check and i == 0:
+                gradj0 = timing.to_host(
+                    ctrl_mod.boundary_inner(prob.bq, g, df))
+                j0 = timing.to_host(sys_mod.cost(prob, fwd.u_values, f.quad))
+                grad_check_mod.grad_test(prob, f, df, j0, gradj0, i,
+                                         out_dir=grad_check_dir)
+
+            # Armijo line search
+            t_inner = _clock(dev)
+            inner = 0
+            if cfg.use_line_search:
+                df = Control(-g.quad, -g.p2)
+                gradj = timing.to_host(ctrl_mod.boundary_inner(prob.bq, g, df))
+                cond = -cfg.c_armijo * gradj
+                j_old = timing.to_host(
+                    sys_mod.cost(prob, fwd.u_values, f.quad))
+                while True:
                     if verbose:
-                        print("line search floored at LR_MIN; accepting")
-                    break
-                lr = new_lr
-                if inner >= cfg.max_line_search_iters:
-                    if verbose:
-                        print("line search hit safety bound; accepting")
-                    break
-        inner_times.append(_clock(dev) - t_inner)
-        inner_iterations.append(inner)
+                        print("line search at " + str(lr))
+                    inner += 1
+                    with timing.span("probe"):
+                        f_ls_quad = f.quad + lr * df.quad
+                        fwd_ls = sys_mod.forward(prob, f_ls_quad)
+                        j_new = timing.to_host(
+                            sys_mod.cost(prob, fwd_ls.u_values, f_ls_quad))
+                    if j_old - j_new >= lr * cond:
+                        if reuse_ls_forward:
+                            # accepted probe control == updated control
+                            fwd_next = fwd_ls
+                        break
+                    new_lr = max(cfg.tau * lr, cfg.LR_MIN)
+                    if new_lr == lr:
+                        # floored at LR_MIN: re-probing is the identical
+                        # solve; accept after the one failed probe
+                        if verbose:
+                            print("line search floored at LR_MIN; accepting")
+                        break
+                    lr = new_lr
+                    if inner >= cfg.max_line_search_iters:
+                        if verbose:
+                            print("line search hit safety bound; accepting")
+                        break
+            inner_times.append(_clock(dev) - t_inner)
+            inner_iterations.append(inner)
 
-        # control update + records
-        f = f.axpy(-lr, g)
-        j_array.append(float(sys_mod.cost(prob, fwd.u_values, f.quad)))
-        u, _ = prob.space.split(fwd.w)
-        divs_u.append(float(assemble.divergence_l2(prob.space, u)))
+            # control update + records
+            f = f.axpy(-lr, g)
+            j_array.append(timing.to_host(
+                sys_mod.cost(prob, fwd.u_values, f.quad)))
+            u, _ = prob.space.split(fwd.w)
+            divs_u.append(timing.to_host(
+                assemble.divergence_l2(prob.space, u)))
 
-        if on_iteration is not None:
-            on_iteration(i, f, fwd, z, j_array)
+            if on_iteration is not None:
+                on_iteration(i, f, fwd, z, j_array)
 
-        # exits
-        if i > 5 and abs(j_array[i] - j_array[i - 1]) < cfg.conv_crit:
-            if verbose:
-                print("cost small enough")
-            exit_reason = "converged"
-            break
-        elif float(fwd.mask.sum()) > escape_threshold:
-            if verbose:
-                print("too many buoys out of domain .. exiting")
-            exit_reason = "buoy_escape"
-            break
+            # exits
+            if i > 5 and abs(j_array[i] - j_array[i - 1]) < cfg.conv_crit:
+                if verbose:
+                    print("cost small enough")
+                exit_reason = "converged"
+                break
+            elif timing.to_host(fwd.mask.sum()) > escape_threshold:
+                if verbose:
+                    print("too many buoys out of domain .. exiting")
+                exit_reason = "buoy_escape"
+                break
 
     last_u_values = (None if last_fwd is None
-                     else last_fwd.u_values.cpu().numpy())
+                     else timing.to_host(last_fwd.u_values))
     return GDRunResult(j_array, divs_u, x_array, outer_times, inner_times,
                        inner_iterations, f, lr, last_fwd, last_z,
                        last_u_values, exit_reason, it_run)
@@ -245,91 +257,96 @@ def _run_gd_staged(cfg: OCPConfig, prob: "sys_mod.OCPProblem", f: Control,
                   "fresh factorizations")
         fwd_f = sys_mod.forward(
             dataclasses.replace(prob, newton_reuse_lu=False), f_quad)
-        return fwd_f, float(progs.record(fwd_f.u_values, f_quad))
+        return fwd_f, timing.to_host(progs.record(fwd_f.u_values, f_quad))
 
     fwd, j_old = None, None
     for i in range(cfg.num_steps):
-        if verbose:
-            print(f"Gradient descent iteration: {i}")
-        t_outer = _clock(dev)
-        if fwd is None:
-            fwd, j_dev = progs.begin(f.quad)
-            j_old = float(j_dev)
-        if (prob.newton_reuse_lu
-                and not math.isfinite(fwd.newton.residual_norm)):
-            fwd, j_old = fresh_resolve(f.quad)
-        z, g, gradj_dev, div_dev, adj_ok = progs.grad(f, fwd)
-        gradj = float(gradj_dev)
-        outer_times.append(_clock(dev) - t_outer)
-        if not fwd.newton.converged:
-            print(f"WARNING: Newton did not converge at iteration {i} "
-                  f"(residual {fwd.newton.residual_norm:.3e})")
-        if not adj_ok:
-            print(f"WARNING: adjoint refinement not converged at "
-                  f"iteration {i}")
-        last_fwd, last_z = fwd, z
-        x_array.append(fwd.x.cpu().numpy())
-        it_run = i + 1
+        with timing.span("gd_iteration", i=i):
+            if verbose:
+                print(f"Gradient descent iteration: {i}")
+            t_outer = _clock(dev)
+            if fwd is None:
+                fwd, j_dev = progs.begin(f.quad)
+                j_old = timing.to_host(j_dev)
+            if (prob.newton_reuse_lu
+                    and not math.isfinite(fwd.newton.residual_norm)):
+                fwd, j_old = fresh_resolve(f.quad)
+            z, g, gradj_dev, div_dev, adj_ok = progs.grad(f, fwd)
+            gradj = timing.to_host(gradj_dev)
+            outer_times.append(_clock(dev) - t_outer)
+            if not fwd.newton.converged:
+                print(f"WARNING: Newton did not converge at iteration {i} "
+                      f"(residual {fwd.newton.residual_norm:.3e})")
+            if not adj_ok:
+                print(f"WARNING: adjoint refinement not converged at "
+                      f"iteration {i}")
+            last_fwd, last_z = fwd, z
+            with timing.span("trajectory_copy",
+                             bytes=fwd.x.numel() * fwd.x.element_size()):
+                x_array.append(timing.to_host(fwd.x))
+            it_run = i + 1
 
-        # gradient check at i == 0
-        if cfg.grad_check and i == 0:
-            gradj0 = float(ctrl_mod.boundary_inner(prob.bq, g, df))
-            grad_check_mod.grad_test(prob, f, df, j_old, gradj0, i,
-                                     out_dir=grad_check_dir)
+            # gradient check at i == 0
+            if cfg.grad_check and i == 0:
+                gradj0 = timing.to_host(
+                    ctrl_mod.boundary_inner(prob.bq, g, df))
+                grad_check_mod.grad_test(prob, f, df, j_old, gradj0, i,
+                                         out_dir=grad_check_dir)
 
-        # Armijo line search; j_old is the accepted state's J
-        t_inner = _clock(dev)
-        inner = 0
-        if cfg.use_line_search:
-            cond = -cfg.c_armijo * gradj
-            while True:
-                if verbose:
-                    print("line search at " + str(lr))
-                inner += 1
+            # Armijo line search; j_old is the accepted state's J
+            t_inner = _clock(dev)
+            inner = 0
+            if cfg.use_line_search:
+                cond = -cfg.c_armijo * gradj
+                while True:
+                    if verbose:
+                        print("line search at " + str(lr))
+                    inner += 1
+                    f_c, fwd_c, j_dev = progs.probe(f, g, lr)
+                    j_new = timing.to_host(j_dev)
+                    if j_old - j_new >= lr * cond:
+                        break
+                    new_lr = max(cfg.tau * lr, cfg.LR_MIN)
+                    if new_lr == lr:
+                        if verbose:
+                            print("line search floored at LR_MIN; accepting")
+                        break
+                    lr = new_lr
+                    if inner >= cfg.max_line_search_iters:
+                        # the probe made at the LR before this decrement
+                        if verbose:
+                            print("line search hit safety bound; accepting")
+                        break
+            else:
                 f_c, fwd_c, j_dev = progs.probe(f, g, lr)
-                j_new = float(j_dev)
-                if j_old - j_new >= lr * cond:
-                    break
-                new_lr = max(cfg.tau * lr, cfg.LR_MIN)
-                if new_lr == lr:
-                    if verbose:
-                        print("line search floored at LR_MIN; accepting")
-                    break
-                lr = new_lr
-                if inner >= cfg.max_line_search_iters:
-                    # the probe made at the LR before this decrement
-                    if verbose:
-                        print("line search hit safety bound; accepting")
-                    break
-        else:
-            f_c, fwd_c, j_dev = progs.probe(f, g, lr)
-            j_new = float(j_dev)
-        inner_times.append(_clock(dev) - t_inner)
-        inner_iterations.append(inner)
+                j_new = timing.to_host(j_dev)
+            inner_times.append(_clock(dev) - t_inner)
+            inner_iterations.append(inner)
 
-        # control update + records
-        fwd_i = fwd
-        f, fwd, j_old = f_c, fwd_c, j_new
-        j_array.append(float(progs.record(fwd_i.u_values, f.quad)))
-        divs_u.append(float(div_dev))
+            # control update + records
+            fwd_i = fwd
+            f, fwd, j_old = f_c, fwd_c, j_new
+            j_array.append(timing.to_host(
+                progs.record(fwd_i.u_values, f.quad)))
+            divs_u.append(timing.to_host(div_dev))
 
-        if on_iteration is not None:
-            on_iteration(i, f, fwd_i, z, j_array)
+            if on_iteration is not None:
+                on_iteration(i, f, fwd_i, z, j_array)
 
-        # exits
-        if i > 5 and abs(j_array[i] - j_array[i - 1]) < cfg.conv_crit:
-            if verbose:
-                print("cost small enough")
-            exit_reason = "converged"
-            break
-        elif float(fwd_i.mask.sum()) > escape_threshold:
-            if verbose:
-                print("too many buoys out of domain .. exiting")
-            exit_reason = "buoy_escape"
-            break
+            # exits
+            if i > 5 and abs(j_array[i] - j_array[i - 1]) < cfg.conv_crit:
+                if verbose:
+                    print("cost small enough")
+                exit_reason = "converged"
+                break
+            elif timing.to_host(fwd_i.mask.sum()) > escape_threshold:
+                if verbose:
+                    print("too many buoys out of domain .. exiting")
+                exit_reason = "buoy_escape"
+                break
 
     last_u_values = (None if last_fwd is None
-                     else last_fwd.u_values.cpu().numpy())
+                     else timing.to_host(last_fwd.u_values))
     return GDRunResult(j_array, divs_u, x_array, outer_times, inner_times,
                        inner_iterations, f, lr, last_fwd, last_z,
                        last_u_values, exit_reason, it_run)

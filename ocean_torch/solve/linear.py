@@ -8,6 +8,7 @@ import torch
 
 from ..fem.assemble import Operator, apply_bc_vector
 from ..ops import linalg
+from ..utils import timing
 
 
 def solve_operator(op: Operator, b: torch.Tensor, bc_vals: torch.Tensor,
@@ -40,7 +41,7 @@ def solve_operator_reuse_t(op: Operator, b: torch.Tensor,
     within ``max_iters``, the operator is factorized afresh and solved
     with refinement, so the result is accurate either way."""
     b = apply_bc_vector(b, op.bc_dofs, bc_vals)
-    target = tol * max(float(torch.linalg.norm(b)), 1e-300)
+    target = tol * max(timing.to_host(torch.linalg.norm(b)), 1e-300)
     b_bc = b[op.bc_dofs]
 
     def project(x):
@@ -48,14 +49,15 @@ def solve_operator_reuse_t(op: Operator, b: torch.Tensor,
 
     x = project(fac.solve_t(b))
     r = b - op.matvec64(x)
-    rnorm = float(torch.linalg.norm(r))
+    rnorm = timing.to_host(torch.linalg.norm(r))
     it = 0
     while rnorm > target and it < max_iters and rnorm == rnorm \
             and rnorm != float("inf"):
         x = project(x + fac.solve_t(r))
         r = b - op.matvec64(x)
-        rnorm = float(torch.linalg.norm(r))
+        rnorm = timing.to_host(torch.linalg.norm(r))
         it += 1
+    timing.count(rounds=it)
     converged = rnorm <= target
     if not converged:
         f2 = linalg.factorize(op.dense())

@@ -15,6 +15,7 @@ import torch
 from torch.func import jvp
 
 from ..ops import linalg
+from ..utils import timing
 
 
 class NewtonResult(NamedTuple):
@@ -83,32 +84,38 @@ def newton_solve(residual_fn: Callable[[torch.Tensor], torch.Tensor],
         def bc_residual32(w32):
             return torch.where(is_bc, w32 - g_full32, residual_fn32(w32))
 
-    r = bc_residual(w0)
-    r0norm = float(torch.linalg.norm(r))
+    def residual_and_norm(w):
+        with timing.span("newton.residual"):
+            r = bc_residual(w)
+            return r, timing.to_host(torch.linalg.norm(r))
+
+    r, r0norm = residual_and_norm(w0)
     if fac0 is None:
-        fac0 = linalg.factorize(operator_fn(w0).dense())
+        with timing.span("newton.factor"):
+            fac0 = linalg.factorize(operator_fn(w0).dense())
 
     w, rnorm, it, fac = w0, r0norm, 0, fac0
     while rnorm > atol and rnorm > rtol * r0norm and it < max_iter:
-        if reuse_factorization and residual_fn32 is not None:
-            w32, r32 = w.to(torch.float32), r.to(torch.float32)
-            dw32 = fac0.solve32_raw(-r32)
-            for _ in range(correction_iters):
-                _, jdw = jvp(bc_residual32, (w32,), (dw32,))
-                dw32 = dw32 + fac0.solve32_raw(-(r32 + jdw))
-            dw = dw32.to(torch.float64)
-        elif reuse_factorization:
-            dw = fac0.solve(-r)
-            for _ in range(correction_iters):
-                _, jdw = jvp(bc_residual, (w,), (dw,))
-                dw = dw + fac0.solve(-(r + jdw))
-        else:
-            if it > 0:
+        if not reuse_factorization and it > 0:
+            with timing.span("newton.factor"):
                 fac = fac.refactor(operator_fn(w).dense())
-            dw = fac.solve(-r)
-        w = w + dw
-        r = bc_residual(w)
-        rnorm = float(torch.linalg.norm(r))
+        with timing.span("newton.step"):
+            if reuse_factorization and residual_fn32 is not None:
+                w32, r32 = w.to(torch.float32), r.to(torch.float32)
+                dw32 = fac0.solve32_raw(-r32)
+                for _ in range(correction_iters):
+                    _, jdw = jvp(bc_residual32, (w32,), (dw32,))
+                    dw32 = dw32 + fac0.solve32_raw(-(r32 + jdw))
+                dw = dw32.to(torch.float64)
+            elif reuse_factorization:
+                dw = fac0.solve(-r)
+                for _ in range(correction_iters):
+                    _, jdw = jvp(bc_residual, (w,), (dw,))
+                    dw = dw + fac0.solve(-(r + jdw))
+            else:
+                dw = fac.solve(-r)
+            w = w + dw
+        r, rnorm = residual_and_norm(w)
         it += 1
     converged = (rnorm <= atol) or (rnorm <= rtol * r0norm)
     return NewtonResult(w, it, rnorm, converged, fac)

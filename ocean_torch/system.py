@@ -69,6 +69,7 @@ from .solve import (newton_solve, solve_operator, solve_operator_reuse_t,
                     GradProjector, NewtonResult)
 from .solve import mg as mg_mod
 from .solve.mg import MGContext
+from .utils import timing
 
 _EPS = 1e-12
 
@@ -549,43 +550,48 @@ def solve_ns(prob: OCPProblem, f_quad: torch.Tensor,
     the ladder, which only finds the basin; below ν = 1 the dense path
     then factorizes J(w_start) each step rather than reusing the Stokes
     factor of w = 0. The "ns_newton" record says ``warm_start``."""
-    warm = w_start is not None
-    w = (w_start if warm
-         else torch.zeros(prob.space.ndof, dtype=torch.float64,
-                          device=prob.device))
-    ladder = ([] if warm
-              else continuation_viscosities(prob.nu,
-                                            prob.newton_continuation))
-    for nu_k in ladder:
-        res = _newton_at(prob, f_quad, nu_k, w, matvec_of=matvec_of)
-        _log_solve(prob, solve="ns_rung", nu=nu_k,
-                   iterations=res.iterations,
+    with timing.span("ns_newton") as span:
+        warm = w_start is not None
+        w = (w_start if warm
+             else torch.zeros(prob.space.ndof, dtype=torch.float64,
+                              device=prob.device))
+        ladder = ([] if warm
+                  else continuation_viscosities(prob.nu,
+                                                prob.newton_continuation))
+        iterations = 0
+        for nu_k in ladder:
+            res = _newton_at(prob, f_quad, nu_k, w, matvec_of=matvec_of)
+            iterations += res.iterations
+            _log_solve(prob, solve="ns_rung", nu=nu_k,
+                       iterations=res.iterations,
+                       residual_norm=res.residual_norm,
+                       converged=res.converged,
+                       krylov_cycles=list(res.krylov_cycles))
+            w = res.w
+
+        if ladder or prob.linear_solver == "mg" or (warm and prob.nu < 1.0):
+            res = _newton_at(prob, f_quad, prob.nu, w, matvec_of=matvec_of)
+        else:
+            residual32 = None
+            if prob.newton_chord_f32 and prob.newton_reuse_lu:
+                space32 = _float32_tables(prob.space)
+                bq32 = _float32_tables(prob.bq)
+                f_quad32 = f_quad.to(torch.float32)
+
+                def residual32(w32):
+                    return assemble.ns_residual(space32, bq32, w32, f_quad32,
+                                                prob.nu)
+            res = newton_solve(_residual_at(prob, f_quad, prob.nu),
+                               _operator_at(prob, prob.nu), w,
+                               prob.bc_dofs, prob.bc_vals,
+                               reuse_factorization=prob.newton_reuse_lu,
+                               correction_iters=prob.newton_correction_iters,
+                               fac0=prob.fac0, residual_fn32=residual32)
+        _log_solve(prob, solve="ns_newton", iterations=res.iterations,
                    residual_norm=res.residual_norm, converged=res.converged,
-                   krylov_cycles=list(res.krylov_cycles))
-        w = res.w
-
-    if ladder or prob.linear_solver == "mg" or (warm and prob.nu < 1.0):
-        res = _newton_at(prob, f_quad, prob.nu, w, matvec_of=matvec_of)
-    else:
-        residual32 = None
-        if prob.newton_chord_f32 and prob.newton_reuse_lu:
-            space32 = _float32_tables(prob.space)
-            bq32 = _float32_tables(prob.bq)
-            f_quad32 = f_quad.to(torch.float32)
-
-            def residual32(w32):
-                return assemble.ns_residual(space32, bq32, w32, f_quad32,
-                                            prob.nu)
-        res = newton_solve(_residual_at(prob, f_quad, prob.nu),
-                           _operator_at(prob, prob.nu), w,
-                           prob.bc_dofs, prob.bc_vals,
-                           reuse_factorization=prob.newton_reuse_lu,
-                           correction_iters=prob.newton_correction_iters,
-                           fac0=prob.fac0, residual_fn32=residual32)
-    _log_solve(prob, solve="ns_newton", iterations=res.iterations,
-               residual_norm=res.residual_norm, converged=res.converged,
-               krylov_cycles=list(res.krylov_cycles), warm_start=warm)
-    return res
+                   krylov_cycles=list(res.krylov_cycles), warm_start=warm)
+        span.set(iterations=iterations + res.iterations)
+        return res
 
 
 class _DifferentiableNS(torch.autograd.Function):
@@ -630,13 +636,14 @@ def _primal_ode(prob: OCPProblem, u: torch.Tensor):
     plain PyTorch ("grid", the kernel's plain version) or the table path.
     The adjoint of "grid" runs on the table path, as in the JAX
     package."""
-    if prob.ode_backend == "pallas":
-        return solve_primal_ode_cuda(prob.grid, u, prob.x0, prob.h, prob.nt,
-                                     prob.center)
-    return solve_primal_ode(prob.space, u, prob.x0, prob.h, prob.nt,
-                            prob.center,
-                            grid=(prob.grid if prob.ode_backend == "grid"
-                                  else None))
+    with timing.span("primal_ode", steps=prob.nt - 1):
+        if prob.ode_backend == "pallas":
+            return solve_primal_ode_cuda(prob.grid, u, prob.x0, prob.h,
+                                         prob.nt, prob.center)
+        return solve_primal_ode(prob.space, u, prob.x0, prob.h, prob.nt,
+                                prob.center,
+                                grid=(prob.grid if prob.ode_backend == "grid"
+                                      else None))
 
 
 def forward(prob: OCPProblem, f_quad: torch.Tensor, ode_impl=None,
@@ -653,6 +660,7 @@ def forward(prob: OCPProblem, f_quad: torch.Tensor, ode_impl=None,
 
 
 
+@timing.span("cost")
 def cost(prob: OCPProblem, u_values: torch.Tensor,
          f_quad: torch.Tensor) -> torch.Tensor:
     """J = 0.5 Σ_k Σ_t h‖u − u_d‖² + α/2 ∫_{Γ₁}|f|² ds (masked buoys
@@ -667,6 +675,7 @@ def cost(prob: OCPProblem, u_values: torch.Tensor,
     return part_a + part_b
 
 
+@timing.span("adjoint_ode")
 def _adjoint_mu(prob: OCPProblem, grad_u: torch.Tensor, x: torch.Tensor,
                 u_values: torch.Tensor, mask: torch.Tensor,
                 x_raw: torch.Tensor, kfail: torch.Tensor) -> torch.Tensor:
@@ -710,6 +719,7 @@ def _source_points(prob: OCPProblem, x: torch.Tensor, mask: torch.Tensor,
     return x, active_t
 
 
+@timing.span("point_sources")
 def _adjoint_sources(prob: OCPProblem, u: torch.Tensor, mu: torch.Tensor,
                      x: torch.Tensor, u_values: torch.Tensor,
                      mask: torch.Tensor, x_raw: torch.Tensor,
@@ -738,6 +748,7 @@ def _adjoint_rhs_body(prob: OCPProblem, u: torch.Tensor,
     return _adjoint_sources(prob, u, mu, *state)
 
 
+@timing.span("adjoint_rhs")
 def adjoint_rhs(prob: OCPProblem, fwd: ForwardState,
                 adjoint_rhs_impl=None) -> torch.Tensor:
     """∇u projection + adjoint ODE + point-source RHS: the adjoint solve's
@@ -751,6 +762,7 @@ def adjoint_rhs(prob: OCPProblem, fwd: ForwardState,
         fwd.kfail)
 
 
+@timing.span("adjoint_assemble")
 def adjoint_operators(prob: OCPProblem, w: torch.Tensor):
     """(fine adjoint operator, coarse adjoint operator or None). The
     coarse one, at the injected state, feeds the inner Krylov of the
@@ -764,6 +776,7 @@ def adjoint_operators(prob: OCPProblem, w: torch.Tensor):
     return op, op_c
 
 
+@timing.span("adjoint_solve")
 def solve_adjoint_system(prob: OCPProblem, fwd: ForwardState,
                          b: torch.Tensor, op, op_c=None, matvec_of=None
                          ) -> Tuple[torch.Tensor, bool]:
@@ -782,6 +795,7 @@ def solve_adjoint_system(prob: OCPProblem, fwd: ForwardState,
             pre=prob.mg_pre, post=prob.mg_post,
             coarse_krylov=prob.mg_coarse_krylov, nu_scale=1.0 / prob.nu,
             matvec_of=matvec_of)
+        timing.count(rounds=sol.rounds)
         _log_solve(prob, solve="adjoint", rounds=sol.rounds,
                    krylov_cycles=sol.iterations,
                    relative_residual=sol.residual_norm / max(sol.b_norm,
@@ -800,6 +814,7 @@ def solve_adjoint_system(prob: OCPProblem, fwd: ForwardState,
                           refine_iters=prob.refine_iters), True
 
 
+@timing.span("adjoint")
 def _solve_adjoint_flagged(prob: OCPProblem, fwd: ForwardState,
                            adjoint_rhs_impl=None, matvec_of=None
                            ) -> Tuple[torch.Tensor, bool]:
@@ -817,6 +832,7 @@ def sum_mask(prob: OCPProblem, mask: torch.Tensor) -> torch.Tensor:
     return torch.sum(mask * prob.buoy_weights)
 
 
+@timing.span("gradient")
 def reduced_gradient(prob: OCPProblem, f: Control,
                      z: torch.Tensor) -> Control:
     """g = αf − z restricted to Γ₁."""
@@ -839,14 +855,16 @@ def line_search(prob: OCPProblem, f: Control, g: Control, fwd: ForwardState,
     ``probes`` counts the accepting (or last) probe too. A probe's
     forward runs with ``ode_impl`` and ``matvec_of`` (``forward``)."""
     df = Control(-g.quad, -g.p2)
-    gradj = float(ctrl_mod.boundary_inner(prob.bq, g, df))
+    gradj = timing.to_host(ctrl_mod.boundary_inner(prob.bq, g, df))
     cond_thresh = -c_armijo * gradj
-    j_old = float(cost(prob, fwd.u_values, f.quad))
+    j_old = timing.to_host(cost(prob, fwd.u_values, f.quad))
     it = 0
     while True:
-        f_ls = f.quad + lr * df.quad
-        fwd_ls = forward(prob, f_ls, ode_impl=ode_impl, matvec_of=matvec_of)
-        j_new = float(cost(prob, fwd_ls.u_values, f_ls))
+        with timing.span("probe"):
+            f_ls = f.quad + lr * df.quad
+            fwd_ls = forward(prob, f_ls, ode_impl=ode_impl,
+                             matvec_of=matvec_of)
+            j_new = timing.to_host(cost(prob, fwd_ls.u_values, f_ls))
         accept = j_old - j_new >= lr * cond_thresh
         if accept or not (it < max_ls_iters and lr > lr_min):
             return lr, it + 1, gradj
@@ -890,7 +908,7 @@ def gd_step(prob: OCPProblem, f: Control, lr,
     u, _ = prob.space.split(fwd.w)
     div_u = assemble.divergence_l2(prob.space, u)
     diverged = (not math.isfinite(fwd.newton.residual_norm)
-                or not bool(torch.isfinite(j_rec)) or not adj_ok)
+                or not timing.to_host(torch.isfinite(j_rec)) or not adj_ok)
     return GDStepResult(f_new, lr, j_rec, div_u, fwd, z, g, gradj, inner,
                         diverged)
 
@@ -981,9 +999,10 @@ def make_staged_pair(prob: OCPProblem, ode_impl=None, adjoint_rhs_impl=None,
         return z, g, gradj, assemble.divergence_l2(prob.space, u), adj_ok
 
     def probe_warm(f: Control, g: Control, lr, w_start):
-        f_new = f.axpy(-lr, g)
-        fwd_new, j_new = begin_warm(f_new.quad, w_start)
-        return f_new, fwd_new, j_new
+        with timing.span("probe"):
+            f_new = f.axpy(-lr, g)
+            fwd_new, j_new = begin_warm(f_new.quad, w_start)
+            return f_new, fwd_new, j_new
 
     def rung(f_quad, w, nu_k):
         return _newton_at(prob, f_quad, float(nu_k), w,
