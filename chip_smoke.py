@@ -7,7 +7,7 @@ Phases, in order; any failure exits non-zero before the last line:
 
 1. device: require CUDA (no CPU fallback); print the card's name and
    power limit as nvidia-smi reports them;
-2. build: compile the five CUDA kernels from ``ocean_torch/csrc`` (one
+2. build: compile the six CUDA kernels from ``ocean_torch/csrc`` (one
    nvcc per source, in parallel) and print the seconds and what ptxas
    says of registers, spills and static shared memory (the adjoint ODE's
    gather slots and the primal ODE's staging rows). The primal ODE also
@@ -78,7 +78,13 @@ Phases, in order; any failure exits non-zero before the last line:
     prints ``lshape_res50_gd_iteration_seconds``;
 13. the five kernels at a real size on the L-shape: 10⁴ meshgrid seeds
     inside the L on path 4's velocity and ∇u fields, each kernel equal to
-    its plain version and timed as in phase 4;
+    its plain version and timed as in phase 4; then kernel 6, the
+    "gather" backend's steps on the locate/dofmap tables
+    (``ode/cuda_table_ode.py``), on path 4's velocity at the L-shape
+    cell's three starts and at the 10⁴ seeds, and on phase 4's velocity
+    at the main path's 10⁴ starts: equal (``torch.equal``) to
+    ``table_ode_steps_plain`` and between two launches, timed as in phase
+    4 with kernel 1 on the same field and starts beside it;
 14. path 5, the "left" diagonal: path 1's configuration and data with
     ``mesh_diagonal="left"``, counts set to 0, one GD step, counts read,
     3 timed (``gd_iteration_seconds_10000_buoys_left``), the stages;
@@ -234,15 +240,19 @@ Phases, in order; any failure exits non-zero before the last line:
     with the record as the previous run: exit "num_steps", the record's
     probes, every J within 1e-6 relative of ``results/flagship_10k/``,
     the launch counts its probes imply. 14e:
-    ``scripts/lshape_production_torch.py``: the record's 28 iterations to
-    the convergence exit, J within 1e-6 and probes equal to
-    ``results/lshape_res50/``, the last |ΔJ| beside the record's.
+    ``scripts/lshape_production_torch.py`` under a CUDA-only profiler: the
+    record's 28 iterations to the convergence exit, J within 1e-6 and
+    probes equal to ``results/lshape_res50/``, the last |ΔJ| beside the
+    record's; counts set to 0 before and read after (kernel 6 once a
+    forward, the others never), and as many ``primal_ode`` spans as
+    kernel 6's launches, each with ``table_kernel`` 1.
 Phase 4 also runs the hard inputs of the "left" diagonal and the pipes.
 Path 3 runs with ``dense_apply="inverse"`` (``limits.run``'s fast paths,
 as in the JAX package).
 
 The line before the last is the kernels' JSON record, one entry per
-kernel and geometry (``geometry``), with the launches of paths 1–2 and
+kernel and geometry (``geometry``; kernel 6's with its K and
+``primal_ode_ms``), with the launches of paths 1–2 and
 ``launches_path3``, ``_path4``, ``_path8``, ``_path11`` (the counted
 sharded steps of 11a and, for the segment sum, 11b), ``_path12`` (12a's
 counted ``gd_multi_step``), ``_path13`` and ``_path14``; the last line is
@@ -273,12 +283,14 @@ PEAK_F64_FLOP_PER_S = 34e12
 # × (multiply + 4 split operations) = 95; ∇u evaluation point: locate 10
 # + P1 weights 3 + 2×2 patch sum of 4 components 28 = 41; Ozaki value:
 # divide by the scale, then 8 slices × (multiply, rint, divide, subtract)
-# = 33.
+# = 33; table ODE step: locate 10, ξ = J⁻¹(p − v₀) 8, P2 basis 18, six-term
+# sum of 2 components 22, Euler step 4 = 62.
 OPS_PRIMAL_STEP = 75
 OPS_ADJOINT_STEP = 60
 OPS_PSRC_POINT = 95
 OPS_P1_EVAL_POINT = 41
 OPS_OZAKI_VALUE = 33
+OPS_TABLE_STEP = 62
 
 TOL = 1e-12
 
@@ -1036,7 +1048,7 @@ def pipe_real_size(dev, card) -> list:
         torch.cuda.synchronize()
         counts = kernels.launch_counts()
         want = {"primal_ode": 1, "adjoint_ode": 1, "point_sources": 1,
-                "p1_eval": 1, "segment_sum": 0}
+                "p1_eval": 1, "segment_sum": 0, "table_ode": 0}
         check(counts == want, f"{geometry}: launches {counts}, expected "
               f"{want}")
         check(bool(torch.isfinite(b).all()) and bool(
@@ -1216,7 +1228,7 @@ def check_run(name: str, result, prob, cfg, counts: dict, metric: str,
     # state was reused: forwards = the first one + the probes
     forwards = 1 + sum(result.inner_iterations)
     want = {"primal_ode": forwards, "adjoint_ode": n, "point_sources": n,
-            "p1_eval": 0, "segment_sum": 0}
+            "p1_eval": 0, "segment_sum": 0, "table_ode": 0}
     check(counts == want, f"{name}: launches {counts}, expected {want}")
     j = result.j_array
     check(all(np.isfinite(j)) and all(b < a for a, b in zip(j, j[1:])),
@@ -1253,26 +1265,34 @@ def check_run(name: str, result, prob, cfg, counts: dict, metric: str,
           f"of iterations 1-{n - 1}: {steady!r}) on {card}", flush=True)
 
 
-def lshape_real_size(prob4, w, records: list, card: str) -> None:
-    """The five kernels at a real size on the L-shape: 10⁴ meshgrid seeds
-    inside the L, nt=200, on path 4's velocity and ∇u fields. Each kernel
-    is held to its plain version and timed as in phase 4; the times go
-    into the kernels' records under ``lshape_*`` keys."""
+def lshape_seeds(ge, dev):
+    """10⁴ meshgrid seeds inside the L (resolution 50's grid tables)."""
     import numpy as np
     import torch
-    from ocean_torch import system
     from ocean_torch.mesh.locate import in_domain
-    from ocean_torch.ode.grideval import grad_to_grid, velocity_to_grid
 
-    dev = prob4.device
-    ge, nt, h = prob4.grid, prob4.nt, prob4.h
     gx, gy = np.meshgrid(np.linspace(0.02, 1.98, 116),
                          np.linspace(0.02, 1.98, 116))
     seeds = torch.as_tensor(np.stack([gx.ravel(), gy.ravel()], 1),
                             device=dev)
     seeds = seeds[in_domain(ge.locator, seeds)][:10000].contiguous()
+    check(seeds.shape[0] == 10000, f"L-shape seeds: {seeds.shape[0]}")
+    return seeds
+
+
+def lshape_real_size(prob4, w, records: list, card: str) -> None:
+    """The five kernels at a real size on the L-shape: 10⁴ meshgrid seeds
+    inside the L, nt=200, on path 4's velocity and ∇u fields. Each kernel
+    is held to its plain version and timed as in phase 4; the times go
+    into the kernels' records under ``lshape_*`` keys."""
+    import torch
+    from ocean_torch import system
+    from ocean_torch.ode.grideval import grad_to_grid, velocity_to_grid
+
+    dev = prob4.device
+    ge, nt, h = prob4.grid, prob4.nt, prob4.h
+    seeds = lshape_seeds(ge, dev)
     K = seeds.shape[0]
-    check(K == 10000, f"L-shape seeds: {K}")
     big = dataclasses.replace(
         prob4, x0=seeds,
         u_d=torch.zeros(K, nt, 2, dtype=torch.float64, device=dev))
@@ -1319,6 +1339,65 @@ def lshape_real_size(prob4, w, records: list, card: str) -> None:
     print("L-shape kernel times (ms, 10⁴ seeds, resolution 50) on "
           f"{card}: " + json.dumps({r["name"]: r["lshape_ms"]
                                     for r in records}), flush=True)
+
+
+def table_bound(K: int, nt: int):
+    """Least time of the table kernel: x0 in; x, u, failed and kfail out,
+    against the float64 operations of K·(nt−1) steps. The tables and u
+    are left out of the bytes: a buoy reads only the cells it passes."""
+    nbytes = 8 * (K * 2 + 2 * K * nt * 2) + 4 * 2 * K
+    return bound_ms(nbytes, OPS_TABLE_STEP * K * (nt - 1))
+
+
+def table_ode_records(cases, card: str) -> list:
+    """Kernel 6 (``csrc/table_ode.cu``, the "gather" backend's steps) on
+    each case (geometry, problem, velocity u, starts x0): x, u, ``failed``
+    and ``kfail`` equal (``torch.equal``) to ``table_ode_steps_plain`` and
+    between two launches; kernel and plain times as in phase 4, kernel 1
+    on the same field and starts beside it (``primal_ode_ms``), and the
+    byte bound. Returns the kernels' records."""
+    import torch
+    from ocean_torch.ode.cuda_ode import primal_ode_steps
+    from ocean_torch.ode.cuda_table_ode import (table_ode_steps,
+                                                table_ode_steps_plain)
+    from ocean_torch.ode.grideval import velocity_to_grid
+
+    records = []
+    for geometry, prob, u, x0 in cases:
+        space, nt, h = prob.space, prob.nt, prob.h
+        K = x0.shape[0]
+        label = f"{geometry}, K={K}"
+        got = table_ode_steps(space, u, x0, h, nt)
+        again = table_ode_steps(space, u, x0, h, nt)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"table_ode on {label}: two launches differ")
+        plain = table_ode_steps_plain(space, u, x0, h, nt)
+        for name, a, b in zip(("x", "u", "failed", "kfail"), got, plain):
+            check(torch.equal(a, b), f"table_ode on {label}: {name} differs "
+                  "from the plain version")
+        err = max(float((a - b).abs().max())
+                  for a, b in zip(got[:2], plain[:2]))
+        ms = cuda_ms(lambda: table_ode_steps(space, u, x0, h, nt), 20)
+        plain_ms = cuda_ms(
+            lambda: table_ode_steps_plain(space, u, x0, h, nt), 3)
+        u_img = velocity_to_grid(prob.grid, u)
+        grid_ms = cuda_ms(
+            lambda: primal_ode_steps(prob.grid, u_img, x0, h, nt), 20)
+        b, by = table_bound(K, nt)
+        escaped = int(got[2].sum())
+        print(f"table_ode on {label}: equal to the plain version, "
+              f"max_abs_err={err!r} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"primal_ode_ms={grid_ms:.4f} bound_ms={b:.4f} "
+              f"escaped={escaped} on {card}", flush=True)
+        records.append(dict(
+            name="table_ode", route="cuda",
+            source="ocean_torch/csrc/table_ode.cu",
+            replaces="ocean_jax/ode/primal.py (the gather lax.scan)",
+            geometry=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=b, bound_by=by, library_ms=None, primal_ode_ms=grid_ms,
+            escaped=escaped))
+    return records
 
 
 def scatter_inputs(prob, fwd) -> dict:
@@ -1617,7 +1696,8 @@ def path8_initial_control(u_d, x0, card: str) -> dict:
               f"path 8: LR history {lrs.tolist()} is not a halving")
         forwards = int((1 + probes).sum())
         want = {"primal_ode": forwards, "adjoint_ode": 12,
-                "point_sources": 12, "p1_eval": 0, "segment_sum": 0}
+                "point_sources": 12, "p1_eval": 0, "segment_sum": 0,
+                "table_ode": 0}
         check(counts == want, f"path 8: launches {counts}, expected {want}")
         check(bool(torch.isfinite(js).all())
               and len(set(tuple(r) for r in js.T.tolist())) == 4,
@@ -1741,7 +1821,7 @@ def mg_driver_run(name: str, cfg, prob, f0, card: str,
           f"{name}: J not finite and decreasing: {j}")
     # each accepted probe's forward state is the next iteration's
     want = {"primal_ode": 1 + sum(res.inner_iterations), "adjoint_ode": n,
-            "point_sources": n, "p1_eval": 0, "segment_sum": 0}
+            "point_sources": n, "p1_eval": 0, "segment_sum": 0, "table_ode": 0}
     check(counts == want, f"{name}: launches {counts}, expected {want}")
     print(f"{name}: launches={counts} escaped="
           f"{int(res.last_fwd.mask.sum())} LR={res.lr!r}", flush=True)
@@ -2918,7 +2998,7 @@ def run_runner(name: str, prob, f0, cfg, card: str, **kw):
     retried = text.count("cold-ladder retry")
     want = {"primal_ode": 1 + sum(p for _, p in accepted) + retried,
             "adjoint_ode": len(js), "point_sources": len(js),
-            "p1_eval": 0, "segment_sum": 0}
+            "p1_eval": 0, "segment_sum": 0, "table_ode": 0}
     check(counts == want and len(states) == want["primal_ode"],
           f"{name}: launches {counts}, expected {want} ({abandoned} "
           f"abandoned probes, {retried} cold retries)")
@@ -3024,7 +3104,7 @@ def path13b_stagers(u_d, x0, card: str):
           f"path 13b: staged adjoint ok {ok}, {zgap} from "
           f"_solve_adjoint_flagged (max|z| {zscale})")
     want = {"primal_ode": 1, "adjoint_ode": 2, "point_sources": 2,
-            "p1_eval": 0, "segment_sum": 0}
+            "p1_eval": 0, "segment_sum": 0, "table_ode": 0}
     check(counts == want, f"path 13b: launches {counts}, expected {want}")
     print(f"path 13b (Nx=64, ν=1, mg): run_newton_staged {it} iterations "
           f"(newton_solve_mg {ref.iterations}), w {gap!r} from it (max|w| "
@@ -3220,6 +3300,7 @@ def path14_entry_points(j_10c: dict, card: str) -> dict:
     import numpy as np
     import torch
     from ocean_torch import kernels
+    from ocean_torch.utils import timing
 
     sys.path.insert(0, str(ROOT / "scripts"))
     import bench_torch
@@ -3240,7 +3321,8 @@ def path14_entry_points(j_10c: dict, card: str) -> dict:
     total = add_counts(total, counts)
     steps = 1 + 3
     want = {"primal_ode": steps, "adjoint_ode": steps,
-            "point_sources": steps, "p1_eval": 0, "segment_sum": 0}
+            "point_sources": steps, "p1_eval": 0, "segment_sum": 0,
+            "table_ode": 0}
     check(counts == want, f"path 14a: launches {counts}, expected {want}")
     check(tuple(rec) == BENCH_KEYS and rec["metric"] ==
           "gd_iteration_seconds_10000_buoys"
@@ -3338,20 +3420,38 @@ def path14_entry_points(j_10c: dict, card: str) -> dict:
               "differs from the record's gap")
         forwards = 1 + sum(FLAGSHIP_PROBES)
         want = {"primal_ode": forwards, "adjoint_ode": 30,
-                "point_sources": 30, "p1_eval": 0, "segment_sum": 0}
+                "point_sources": 30, "p1_eval": 0, "segment_sum": 0,
+                "table_ode": 0}
         check(counts == want, f"path 14d: launches {counts}, expected {want}")
 
         # --- 14e. the L-shape to its convergence exit -----------------------
+        # under a CUDA-only profiler, so the program records its spans:
+        # kernel 6 runs once in every primal_ode span (the gather backend)
         out = Path(tmp) / "lshape"
         kernels.reset_launch_counts()
+        timing.clear()
         t0 = time.perf_counter()
         buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
+        with contextlib.redirect_stdout(buf), torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]):
             res_l = lshape_production_torch.main(["--out", str(out)])
-        total = add_counts(total, kernels.launch_counts())
-        print(f"path 14e (scripts/lshape_production_torch.py): "
+        counts = kernels.launch_counts()
+        total = add_counts(total, counts)
+        print(f"path 14e (scripts/lshape_production_torch.py, traced): "
               f"{buf.getvalue().strip().splitlines()[-1]} "
               f"({time.perf_counter() - t0:.2f} s)", flush=True)
+        spans = [r for r in timing.recorded() if r.name == "primal_ode"]
+        on = sum(r.attrs.get("table_kernel") == 1 for r in spans)
+        timing.clear()
+        forwards = 1 + sum(LSHAPE_PROBES)
+        want = {"primal_ode": 0, "adjoint_ode": 0, "point_sources": 0,
+                "p1_eval": 0, "segment_sum": 0, "table_ode": forwards}
+        check(counts == want, f"path 14e: launches {counts}, expected {want}")
+        check(len(spans) == on == counts["table_ode"],
+              f"path 14e: {len(spans)} primal_ode spans, {on} with "
+              f"table_kernel 1, {counts['table_ode']} table_ode launches")
+        print(f"path 14e: {len(spans)} primal_ode spans, each with "
+              f"table_kernel 1 and one table_ode launch", flush=True)
         j = res_l.j_array
         print(f"path 14e: exit {res_l.exit_reason} after "
               f"{res_l.iterations_run} iterations; the last |ΔJ| "
@@ -3666,6 +3766,15 @@ def main() -> int:
 
     # --- 13. the five kernels at a real size on the L-shape ---------------
     lshape_real_size(prob4, res4.last_fwd.w, records, card)
+    # kernel 6 at the L-shape cell's shapes (its three starts, nt=200) and
+    # at 10⁴ starts on the L-shape and on the rectangle
+    u4, _ = prob4.space.split(res4.last_fwd.w)
+    u1, _ = prob.space.split(warm.fwd.w)
+    lshape = "L-shape, resolution 50"
+    table_records = table_ode_records(
+        ((lshape, prob4, u4, prob4.x0),
+         (lshape, prob4, u4, lshape_seeds(prob4.grid, dev)),
+         (RECTANGLE, prob, u1, prob.x0)), card)
 
     # --- 14. path 5: the "left" diagonal at the main path's width --------
     cfg5 = dataclasses.replace(cfg, mesh_diagonal="left")
@@ -3763,7 +3872,14 @@ def main() -> int:
         rec["launches_path13"] = counts_p13[rec["name"]]
         rec["launches_path14"] = counts_p14[rec["name"]]
         rec["geometry"] = RECTANGLE
-    print(json.dumps({"kernels": records + domain_records}))
+    for rec in table_records:
+        rec["launches"] = counts1["table_ode"] + counts2["table_ode"]
+        for path, counts in (("3", counts_p3), ("4", counts_p4),
+                             ("8", counts_p8), ("11", counts_p11),
+                             ("12", multi["launches"]), ("13", counts_p13),
+                             ("14", counts_p14)):
+            rec["launches_path" + path] = counts.get("table_ode", 0)
+    print(json.dumps({"kernels": records + table_records + domain_records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -40,6 +40,7 @@ SOURCES = {
     "point_sources": "point_sources.cu",
     "p1_eval": "p1_eval.cu",
     "segment_sum": "segment_sum.cu",
+    "table_ode": "table_ode.cu",
 }
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]

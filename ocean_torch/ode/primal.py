@@ -89,7 +89,9 @@ def solve_primal_ode(space: TaylorHoodSpace, u: torch.Tensor,
                      center: torch.Tensor, grid=None) -> PrimalODEResult:
     """Reference path: point evaluation through the locate/dofmap tables,
     or, with ``grid`` (an ``ode.grideval.GridEval``), through the
-    table-free half-grid stencil (the same values to rounding).
+    table-free half-grid stencil (the same values to rounding). Plain
+    PyTorch on every device: ``system._primal_ode`` runs the table path's
+    steps on the card in ``ode/cuda_table_ode.py``'s kernel instead.
     u: (n_p2, 2) velocity dofs; x0: (K, 2) seeds; nt time samples."""
     if grid is not None:
         from .grideval import eval_velocity_grid, velocity_to_grid

@@ -62,6 +62,7 @@ from .fem.spaces import TaylorHoodSpace, BoundaryQuad
 from .mesh import rectangle_mesh, l_shape_mesh, mark_boundary_facets
 from .ode import (solve_primal_ode, solve_adjoint_ode,
                   solve_adjoint_ode_consistent, solve_primal_ode_cuda,
+                  solve_primal_ode_table_cuda,
                   solve_adjoint_ode_cuda)
 from .ode.grideval import GridEval, make_grideval
 from .ops import linalg
@@ -633,13 +634,19 @@ def make_differentiable_ns_solver(prob: OCPProblem):
 def _primal_ode(prob: OCPProblem, u: torch.Tensor):
     """Primal buoy ODE on the configured backend: the CUDA kernel
     ("pallas", the JAX name of the fused path), the half-grid stencil in
-    plain PyTorch ("grid", the kernel's plain version) or the table path.
-    The adjoint of "grid" runs on the table path, as in the JAX
+    plain PyTorch ("grid", the kernel's plain version) or the table path
+    ("gather"), whose steps run in the table kernel where u is on the card
+    (the span's ``table_kernel`` is then 1) and in plain PyTorch on the
+    CPU. The adjoint of "grid" runs on the table path, as in the JAX
     package."""
-    with timing.span("primal_ode", steps=prob.nt - 1):
+    with timing.span("primal_ode", steps=prob.nt - 1, table_kernel=0) as s:
         if prob.ode_backend == "pallas":
             return solve_primal_ode_cuda(prob.grid, u, prob.x0, prob.h,
                                          prob.nt, prob.center)
+        if prob.ode_backend == "gather" and u.is_cuda:
+            s.set(table_kernel=1)
+            return solve_primal_ode_table_cuda(prob.space, u, prob.x0,
+                                               prob.h, prob.nt, prob.center)
         return solve_primal_ode(prob.space, u, prob.x0, prob.h, prob.nt,
                                 prob.center,
                                 grid=(prob.grid if prob.ode_backend == "grid"

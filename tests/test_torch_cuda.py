@@ -1,4 +1,4 @@
-"""The five CUDA kernels against their plain PyTorch versions, on the
+"""The six CUDA kernels against their plain PyTorch versions, on the
 card (marker ``cuda``; skipped where there is no CUDA device). Run them
 on a machine with an NVIDIA Hopper GPU and nvcc:
 
@@ -23,7 +23,9 @@ The same holds on the "left" diagonal (rectangle and L-shape, points on
 the anti-diagonals) and on the pipe meshes (graded lines, the obstacle's
 fringe, buoys entering its removed squares at known steps, NaN starts:
 there NaN equals NaN, ``torch_kernel_cases.same``), and the plain
-location on the card is the CPU's there too.
+location on the card is the CPU's there too. The table-path primal ODE
+(``csrc/table_ode.cu``) is held to its plain mirror on the same ODE hard
+inputs, read at the P2 dofs, and drives the L-shape's production job.
 """
 
 import dataclasses
@@ -721,3 +723,122 @@ def test_checkpoint_and_space_default_to_the_card(dev, tmp_path):
         assert got.quad.device.type == got.p2.device.type == "cuda"
         assert torch.equal(got.quad, saved.quad)
         assert torch.equal(got.p2, saved.p2) and (lr, it) == (0.5, 3)
+
+
+# --- the table-path primal ODE (csrc/table_ode.cu) --------------------------
+
+def _table_same(space, u_img, x0, h, nt):
+    """The kernel against its plain mirror and against a second launch,
+    one launch each counted; the half-grid image read at the P2 dofs."""
+    from ocean_torch.ode.cuda_table_ode import (table_ode_steps,
+                                                table_ode_steps_plain)
+    u = u_img.to(space.device)[make_grideval(space).dof_to_node]
+    x0 = x0.to(space.device)
+    n0 = kernels.LAUNCHES["table_ode"]
+    got = table_ode_steps(space, u, x0, h, nt)
+    again = table_ode_steps(space, u, x0, h, nt)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["table_ode"] == n0 + 2
+    plain = table_ode_steps_plain(space, u, x0, h, nt)
+    assert got[0].shape == (len(x0), nt, 2)
+    for a, b, c in zip(got, again, plain):
+        assert kernel_cases.same(a, b) and kernel_cases.same(a, c)
+    return plain
+
+
+def test_table_kernel_matches_plain(dev):
+    """The L-shape at resolution 50: its three buoys and 3,000 random
+    starts over 200 steps in a random field, and 10⁴ on the rectangle."""
+    rng = np.random.default_rng(43)
+    for mesh, K in ((structured.l_shape_mesh(50), 3),
+                    (structured.l_shape_mesh(50), 3000),
+                    (structured.rectangle_mesh((0.0, 0.0), (2.0, 2.0), 32,
+                                               32), 10000)):
+        space = make_space(mesh, dev)
+        Hy, Hx = make_grideval(space).hg_shape
+        u_img = torch.as_tensor(0.9 * rng.standard_normal((Hy * Hx, 2)))
+        x0 = (torch.tensor([[0.5, 0.5], [1.0, 0.5], [1.5, 1.0]],
+                           dtype=torch.float64) if K == 3 else
+              torch.as_tensor(rng.uniform(0.0, 2.0, (K, 2))))
+        plain = _table_same(space, u_img, x0, 0.005, 200)
+        assert K == 3 or bool(plain[2].any())
+
+
+@pytest.mark.parametrize("case", kernel_cases.PRIMAL_CASES)
+def test_table_kernel_hard_inputs(dev, case):
+    nx = kernel_cases.ode_case_nx(case, 16)
+    space = make_space(structured.rectangle_mesh((0.0, 0.0), (2.0, 2.0), nx,
+                                                 nx), dev)
+    _table_same(space, *kernel_cases.primal_ode_case(case, 16))
+
+
+@pytest.mark.parametrize("diagonal", ["right", "left"])
+@pytest.mark.parametrize("case", kernel_cases.LSHAPE_PRIMAL_CASES)
+def test_table_kernel_lshape_hard_inputs(dev, case, diagonal):
+    space = make_space(structured.l_shape_mesh(
+        kernel_cases.lshape_case_res(case, 16), diagonal=diagonal), dev)
+    plain = _table_same(space, *kernel_cases.lshape_primal_case(case, 16))
+    assert bool(plain[2].any())
+
+
+@pytest.mark.parametrize("name,case", kernel_cases.pipe_primal_cases())
+def test_table_kernel_pipe_hard_inputs(dev, name, case):
+    mesh, _ = structured.pipe_mesh(**kernel_cases.PIPE_MESHES[name])
+    _table_same(make_space(mesh, dev),
+                *kernel_cases.pipe_primal_case(case, mesh))
+
+
+def test_table_kernel_launches_by_backend(dev):
+    """``system._primal_ode`` launches the table kernel once a call on a
+    "gather" problem on the card and never on a "pallas" one; the gather
+    result is the CPU's to rounding, escapes alike."""
+    from ocean_torch import system
+    rng = np.random.default_rng(47)
+    n_p2 = _small_problem("cpu", K=100).space.n_p2
+    u = 0.3 * rng.standard_normal((n_p2, 2)) + np.array([-0.3, 0.1])
+    out = {}
+    for where in ("cpu", "cuda"):
+        prob = _small_problem(where, K=100)
+        kernels.reset_launch_counts()
+        out[where] = system._primal_ode(prob, torch.as_tensor(u,
+                                                              device=where))
+        out[where] = system._primal_ode(prob, torch.as_tensor(u,
+                                                              device=where))
+        assert kernels.LAUNCHES["table_ode"] == (2 if where == "cuda" else 0)
+    gpu, cpu = out["cuda"], out["cpu"]
+    assert torch.equal(gpu.mask.cpu(), cpu.mask)
+    assert torch.equal(gpu.kfail.cpu(), cpu.kfail)
+    assert bool(cpu.mask.any()) and not bool(cpu.mask.all())
+    assert _rel(gpu.x, cpu.x) < 1e-12
+    assert _rel(gpu.u_values, cpu.u_values) < 1e-12
+    prob = _small_problem("cuda", K=100, ode_backend="pallas")
+    kernels.reset_launch_counts()
+    system._primal_ode(prob, torch.as_tensor(u, device=dev))
+    assert kernels.LAUNCHES["table_ode"] == 0
+    assert kernels.LAUNCHES["primal_ode"] == 1
+
+
+def test_lshape_job_through_the_table_kernel(dev, tmp_path, monkeypatch):
+    """The L-shape production job (``ocp.run``, resolution 50, 3 buoys,
+    Armijo from LR 5) on the card: J₀ of the benchmark's seed-0 job
+    within 1e-12, one accepted probe an iteration, and the convergence
+    exit after 28 iterations; every forward solve through the kernel."""
+    from ocean_torch.config import OCPConfig
+    from ocean_torch.pipelines import ocp
+    cfg = OCPConfig(L_shape=True, L_shape_resolution=50,
+                    ud_experiment="3_buoys", num_steps=30,
+                    use_line_search=True, LR=5.0,
+                    out_dir=str(tmp_path) + "/")
+    from ocean_torch import system
+    calls = []
+    primal = system._primal_ode
+    monkeypatch.setattr(system, "_primal_ode",
+                        lambda *a: calls.append(1) or primal(*a))
+    kernels.reset_launch_counts()
+    res, _ = ocp.run(cfg, verbose=False, device=dev)
+    j0 = 0.32335969506496326
+    assert abs(res.j_array[0] - j0) <= 1e-12 * j0
+    assert res.iterations_run == 28 and res.exit_reason == "converged"
+    assert list(res.inner_iterations) == [1] * 28
+    assert kernels.LAUNCHES["table_ode"] == len(calls) > 28
+    assert kernels.LAUNCHES["primal_ode"] == 0
