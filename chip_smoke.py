@@ -1747,6 +1747,20 @@ def path8_initial_control(u_d, x0, card: str) -> dict:
 # (results/hires_mg/run.log), so they are printed beside the port's, not
 # held to it.
 HIRES_J0 = {64: 1.157232246063213, 192: 1.158434906717261}
+# the same study run to its convergence exit at Nx=64 (run "nx64_conv"):
+# J of every iteration, probes (iteration 0 halves LR 1 to 0.0625), Newton
+# iterations a solve and adjoint rounds an iteration
+HIRES_NX64_CONV_J = (
+    1.15723224606322, 0.23830559751911007, 0.1292118054513729,
+    0.09911840596586985, 0.08007911959641678, 0.06587505811654726,
+    0.055029012414485906, 0.04669576005580689, 0.04026560340171237,
+    0.035281604532182986, 0.03139930436272653, 0.028358035742632515,
+    0.025960084667992267, 0.024055144856016675, 0.02252873535050215,
+    0.02129351141592606, 0.02028273155075544, 0.01944532780357841)
+HIRES_NX64_CONV_PROBES = (5,) + (1,) * 17
+HIRES_NX64_CONV_NEWTON = 4
+HIRES_NX64_CONV_ROUNDS = 3
+HIRES_RTOL = 1e-8
 
 
 def square_sizes(n: int):
@@ -1764,8 +1778,11 @@ def mg_levels(ctx) -> list:
 
 
 def mg_driver_run(name: str, cfg, prob, f0, card: str,
-                  rejected_may_stall: bool = False, forwards=None):
-    """Counts set to 0, ``cfg.num_steps`` driver iterations, counts read;
+                  rejected_may_stall: bool = False, forwards=None,
+                  to_exit: bool = False):
+    """Counts set to 0, ``cfg.num_steps`` driver iterations (with
+    ``to_exit``, up to the driver's exit: the caller checks it), counts
+    read;
     every NS and adjoint solve of the run converged (the problem's solve
     log; with ``rejected_may_stall`` the NS solves of rejected line-search
     probes may stall, and their count is printed); per iteration J,
@@ -1813,8 +1830,8 @@ def mg_driver_run(name: str, cfg, prob, f0, card: str,
               f"{res.outer_times[i] + res.inner_times[i]!r} on {card}",
               flush=True)
     n = res.iterations_run
-    check(n == cfg.num_steps, f"{name}: ran {n} iterations, exit "
-          f"{res.exit_reason}")
+    check(to_exit or n == cfg.num_steps, f"{name}: ran {n} iterations, "
+          f"exit {res.exit_reason}")
     j = res.j_array
     check(all(v == v and abs(v) != float("inf") for v in j)
           and all(b < a for a, b in zip(j, j[1:])),
@@ -1928,6 +1945,54 @@ def stencil_times(prob, label: str, card: str) -> None:
               f"(nnz {a.values().numel()}) on {card}", flush=True)
 
 
+def path9d_to_exit(cfg, prob, f0, card: str):
+    """Path 9d: the Nx=64 study run to its convergence exit through
+    ``run_gradient_descent``, held to its record: every J within
+    HIRES_RTOL relative, the probes, 4 Newton iterations a solve (of
+    the forwards the run went on with), 3 adjoint rounds, the exit at
+    iteration 17. Returns the result."""
+    import dataclasses as dc
+    import numpy as np
+
+    n = len(HIRES_NX64_CONV_J)
+    prob = dc.replace(prob, solve_log=[])
+    res, _ = mg_driver_run("path 9d (Nx=64 to the exit)",
+                           dc.replace(cfg, num_steps=30, conv_crit=1e-3),
+                           prob, f0, card, to_exit=True)
+    j = np.asarray(res.j_array[:n])
+    gaps = np.abs(j - HIRES_NX64_CONV_J[:len(j)]) / np.abs(
+        HIRES_NX64_CONV_J[:len(j)])
+    probes = tuple(res.inner_iterations)
+    differ = [i for i, (a, b) in enumerate(zip(probes,
+                                               HIRES_NX64_CONV_PROBES))
+              if a != b]
+    used, _ = used_forwards(prob.solve_log)
+    newton = [g[-1]["iterations"] for g in used]
+    rounds = [r["rounds"] for r in prob.solve_log if r["solve"] == "adjoint"]
+    steady = [o + i for o, i in zip(res.outer_times[1:], res.inner_times[1:])]
+    print(f"path 9d: {len(res.j_array)} iterations, exit "
+          f"{res.exit_reason!r}, largest relative gap of J to the record "
+          f"{float(gaps.max())!r} (iteration {int(gaps.argmax())}), probes "
+          f"{list(probes)} (first Armijo decision off the record: "
+          f"{differ[0] if differ else None}), Newton iterations of the "
+          f"forwards the run went on with "
+          f"{sorted(set(newton))}, adjoint rounds {sorted(set(rounds))}, "
+          f"iteration seconds 1-{len(steady)}: median "
+          f"{sorted(steady)[len(steady) // 2]!r} max {max(steady)!r} on "
+          f"{card}", flush=True)
+    check(len(res.j_array) == n and res.exit_reason == "converged",
+          f"path 9d: {len(res.j_array)} iterations, exit "
+          f"{res.exit_reason}; the record stopped converged after {n}")
+    check(float(gaps.max()) < HIRES_RTOL,
+          f"path 9d: J off the record by {float(gaps.max())}")
+    check(not differ, f"path 9d: probes {probes}, the record "
+          f"{HIRES_NX64_CONV_PROBES}")
+    check(set(newton) == {HIRES_NX64_CONV_NEWTON}
+          and set(rounds) == {HIRES_NX64_CONV_ROUNDS},
+          f"path 9d: Newton iterations {newton}, adjoint rounds {rounds}")
+    return res
+
+
 def path9_hires(card: str) -> list:
     """Path 9: the JAX package's hi-res multigrid study through the
     port's entry points. Returns the kernels' records of its inputs."""
@@ -1993,6 +2058,7 @@ def path9_hires(card: str) -> list:
                             f"rectangle, Nx={nx}, mg", card)
     print_stages("path 9a (Nx=64, mg)", prob, res.f, res.lr)
     stencil_times(prob, f"Nx={nx}", card)
+    path9d_to_exit(cfg, prob, f0, card)
 
     # --- 9b. the dense LU against multigrid at Nx=64 ----------------------
     torch.cuda.reset_peak_memory_stats()

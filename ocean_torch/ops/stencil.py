@@ -200,3 +200,27 @@ def matvec_of(st: StencilTables, dtype=torch.float32):
         bc = op.bc_dofs
         return lambda x: stencil_matvec(st, s, bc, x)
     return of
+
+
+class ReloadableMatvec:
+    """``matvec_of``'s operator application as one object for a sequence
+    of operators of one topology: ``load(op)`` overwrites its coefficient
+    image and Dirichlet dofs in place and returns it, so every operator
+    is applied from the same tensors, which a replayed CUDA graph of the
+    Krylov cycle reads (``solve/krylov.py``)."""
+
+    def __init__(self, st: StencilTables, dtype=torch.float32):
+        self.st, self.dtype = st, dtype
+        self.s = self.bc = None
+
+    def load(self, op: Operator) -> "ReloadableMatvec":
+        s = build_coefficients(self.st, op, self.dtype)
+        if self.s is None:
+            self.s, self.bc = s, op.bc_dofs.clone()
+        else:
+            self.s.copy_(s)
+            self.bc.copy_(op.bc_dofs)
+        return self
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        return stencil_matvec(self.st, self.s, self.bc, x)

@@ -6,10 +6,19 @@ FGMRES runs on a matrix-free operator application, right-preconditioned;
 block diagonal. The multigrid preconditioner of the high-resolution path
 is ``solve/mg.py``.
 
-PyTorch runs eagerly: the restart cycles are a host loop, the Arnoldi
-steps of a cycle are queued without a host sync, and each cycle's small
-least-squares problem is solved on the host in float64 by SVD (as
-``jnp.linalg.lstsq`` does), one device-to-host copy a cycle.
+The restart cycles are a host loop, the Arnoldi steps of a cycle are
+queued without a host sync, and each cycle's small least-squares problem
+is solved on the host in float64 by SVD (as ``jnp.linalg.lstsq`` does),
+one device-to-host copy a cycle. Each call is one ``fgmres`` span
+(``utils/timing.py``), and its norm reads and the copy are counted host
+syncs. With ``graph=True`` on a CUDA device the Arnoldi steps of a cycle
+are one CUDA graph (``_CycleGraph``): captured once, then replayed for
+every cycle, and for later calls with the same operator and
+preconditioner objects, whose tensors may change in place in between.
+Replay launches the kernels of the eager steps on the same buffers, so
+the numbers are the eager loop's; the host dispatches a cycle once
+instead of once a cycle. The operator and the preconditioner must then
+make no host sync and no collective.
 
 One departure from the JAX Arnoldi: each step orthogonalizes twice
 (classical Gram–Schmidt with one re-orthogonalization, CGS2). In float32
@@ -24,6 +33,7 @@ The restart, tolerance and cycle-count semantics are the JAX package's.
 
 from __future__ import annotations
 
+import weakref
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -31,6 +41,7 @@ import torch
 
 from ..fem.assemble import Operator, apply_bc_vector, gather_sum
 from ..fem.spaces import TaylorHoodSpace
+from ..utils import timing
 
 
 def operator_diagonal(op: Operator) -> torch.Tensor:
@@ -76,10 +87,88 @@ class FGMRESResult(NamedTuple):
 
 def _lstsq64(H: torch.Tensor, beta: float) -> np.ndarray:
     """argmin ‖β e₁ − H y‖ in float64 on the host (SVD, rcond = eps·m)."""
-    h = H.detach().to("cpu", torch.float64).numpy()
+    h = timing.to_host(H.detach()).astype(np.float64)
     e1 = np.zeros(h.shape[0])
     e1[0] = beta
     return np.linalg.lstsq(h, e1, rcond=None)[0]
+
+
+def _arnoldi(matvec, M, V, Z, H, tiny: float, steps: int) -> None:
+    """``steps`` Arnoldi steps from V[0] into V, Z (the preconditioned
+    directions) and H, Gram–Schmidt as CGS2."""
+    for j in range(steps):
+        z = M(V[j])
+        w = matvec(z)
+        hs = V[: j + 1] @ w
+        w = w - hs @ V[: j + 1]
+        h2 = V[: j + 1] @ w            # second pass (CGS2)
+        w = w - h2 @ V[: j + 1]
+        hs = hs + h2
+        hnew = torch.linalg.norm(w)
+        V[j + 1] = w / hnew.clamp_min(tiny)
+        H[: j + 1, j] = hs
+        H[j + 1, j] = hnew
+        Z[j] = z
+
+
+class _CycleGraph:
+    """One Arnoldi cycle captured as a CUDA graph on static V, Z, H.
+
+    The graph reads the tensors that ``matvec`` and ``M`` read when it was
+    captured, so it serves only those two objects (held by weak reference:
+    a new object of a dead one's id is not served). Each device keeps its
+    newest graph (``_GRAPHS``); a new capture shares the private memory
+    pool of the one it replaces, and is made before that one is freed,
+    so the pool stays alive and is reused by every capture."""
+
+    def __init__(self, matvec, M, v0: torch.Tensor, restart: int,
+                 pool, stream: torch.cuda.Stream):
+        n, dev = v0.shape[0], v0.device
+        self.key = (weakref.ref(matvec), weakref.ref(M), n, v0.dtype,
+                    restart)
+        self.pool, self.stream = pool, stream
+        self.V = v0.new_zeros((restart + 1, n))
+        self.Z = v0.new_zeros((restart, n))
+        self.H = v0.new_zeros((restart + 1, restart))
+        tiny = torch.finfo(v0.dtype).tiny
+        self.V[0] = v0
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            # one eager step on the capture stream first: cuBLAS binds its
+            # workspace to a stream on first use, which a capture forbids
+            _arnoldi(matvec, M, self.V, self.Z, self.H, tiny, 1)
+            self.graph = torch.cuda.CUDAGraph()
+            self.graph.capture_begin(pool=pool,
+                                     capture_error_mode="thread_local")
+            _arnoldi(matvec, M, self.V, self.Z, self.H, tiny, restart)
+            self.graph.capture_end()
+        torch.cuda.current_stream(dev).wait_stream(stream)
+
+    def serves(self, matvec, M, v0: torch.Tensor, restart: int) -> bool:
+        mv, m, n, dtype, r = self.key
+        return (mv() is matvec and m() is M and n == v0.shape[0]
+                and dtype == v0.dtype and r == restart)
+
+    def run(self, v0: torch.Tensor):
+        self.V[0] = v0
+        self.graph.replay()
+        return self.V, self.Z, self.H
+
+
+_GRAPHS: dict = {}       # torch.device → its newest _CycleGraph
+
+
+def _graphed_cycle(matvec, M, v0: torch.Tensor, restart: int):
+    """V, Z, H of one Arnoldi cycle from v0 by the device's cycle graph,
+    captured anew unless the newest one serves (matvec, M)."""
+    dev = v0.device
+    old = _GRAPHS.get(dev)
+    if old is None or not old.serves(matvec, M, v0, restart):
+        pool = torch.cuda.graph_pool_handle() if old is None else old.pool
+        stream = torch.cuda.Stream(dev) if old is None else old.stream
+        _GRAPHS[dev] = _CycleGraph(matvec, M, v0, restart, pool, stream)
+        del old
+    return _GRAPHS[dev].run(v0)
 
 
 def fgmres(matvec: Callable[[torch.Tensor], torch.Tensor],
@@ -88,49 +177,49 @@ def fgmres(matvec: Callable[[torch.Tensor], torch.Tensor],
            x0: Optional[torch.Tensor] = None,
            restart: int = 60,
            max_restarts: int = 10,
-           tol: float = 1e-10) -> FGMRESResult:
+           tol: float = 1e-10,
+           graph: bool = False) -> FGMRESResult:
     """Right-preconditioned restarted flexible GMRES in ``b.dtype``.
 
     The JAX semantics: every cycle runs all ``restart`` Arnoldi steps
     (Gram–Schmidt, here CGS2; norms guarded by the dtype's ``tiny``), a
     cycle's update is kept only if it lowers the true residual, and the
     loop stops once ‖b − A x‖ ≤ tol·‖b‖ or after ``max_restarts`` cycles.
-    ``iterations`` counts the cycles."""
+    ``iterations`` counts the cycles. ``graph`` replays the cycle as a
+    CUDA graph where ``b`` is on a CUDA device (the module's notes). The
+    call is the span ``fgmres`` with ``cycles``, ``arnoldi_steps``
+    (cycles × restart) and ``dtype`` (its bits)."""
     if M is None:
         M = lambda v: v
-    x = torch.zeros_like(b) if x0 is None else x0
-    tiny = torch.finfo(b.dtype).tiny
-    target = tol * max(float(torch.linalg.norm(b)), tiny)
-    r = b - matvec(x)
-    rnorm = float(torch.linalg.norm(r))
-    it = 0
-    while rnorm > target and it < max_restarts:
-        beta = torch.linalg.norm(r)
-        V = b.new_zeros((restart + 1, b.shape[0]))
-        Z = b.new_zeros((restart, b.shape[0]))
-        H = b.new_zeros((restart + 1, restart))
-        V[0] = r / beta.clamp_min(tiny)
-        for j in range(restart):
-            z = M(V[j])
-            w = matvec(z)
-            hs = V[: j + 1] @ w
-            w = w - hs @ V[: j + 1]
-            h2 = V[: j + 1] @ w            # second pass (CGS2)
-            w = w - h2 @ V[: j + 1]
-            hs = hs + h2
-            hnew = torch.linalg.norm(w)
-            V[j + 1] = w / hnew.clamp_min(tiny)
-            H[: j + 1, j] = hs
-            H[j + 1, j] = hnew
-            Z[j] = z
-        y = torch.as_tensor(_lstsq64(H, float(beta)), dtype=b.dtype,
-                            device=b.device)
-        x_new = x + y @ Z
-        r_new = b - matvec(x_new)
-        rnorm_new = float(torch.linalg.norm(r_new))
-        if rnorm_new < rnorm:
-            x, r, rnorm = x_new, r_new, rnorm_new
-        it += 1
+    graph = graph and b.is_cuda
+    with timing.span("fgmres") as span:
+        x = torch.zeros_like(b) if x0 is None else x0
+        tiny = torch.finfo(b.dtype).tiny
+        target = tol * max(timing.to_host(torch.linalg.norm(b)), tiny)
+        r = b - matvec(x)
+        rnorm = timing.to_host(torch.linalg.norm(r))
+        it = 0
+        while rnorm > target and it < max_restarts:
+            beta = torch.linalg.norm(r)
+            v0 = r / beta.clamp_min(tiny)
+            if graph:
+                V, Z, H = _graphed_cycle(matvec, M, v0, restart)
+            else:
+                V = b.new_zeros((restart + 1, b.shape[0]))
+                Z = b.new_zeros((restart, b.shape[0]))
+                H = b.new_zeros((restart + 1, restart))
+                V[0] = v0
+                _arnoldi(matvec, M, V, Z, H, tiny, restart)
+            y = torch.as_tensor(_lstsq64(H, timing.to_host(beta)),
+                                dtype=b.dtype, device=b.device)
+            x_new = x + y @ Z
+            r_new = b - matvec(x_new)
+            rnorm_new = timing.to_host(torch.linalg.norm(r_new))
+            if rnorm_new < rnorm:
+                x, r, rnorm = x_new, r_new, rnorm_new
+            it += 1
+        span.set(cycles=it, arnoldi_steps=it * restart,
+                 dtype=torch.finfo(b.dtype).bits)
     return FGMRESResult(x, rnorm, it, rnorm <= target)
 
 

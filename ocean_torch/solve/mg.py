@@ -21,7 +21,14 @@ Precision, as in the JAX package: the inner FGMRES, the V-cycle and the
 leaf solve run in float32; Newton residuals and the refinement rounds of
 ``solve_operator_mg`` are exact float64. Every reduction is a gather
 over a precomputed incidence (no atomics), so a solve is reproducible on
-the card.
+the card. On the card the float32 FGMRES cycles of ``newton_solve_mg``
+and ``solve_operator_mg`` replay one CUDA graph a solve
+(``krylov.fgmres``'s ``graph``), which changes no number.
+
+Spans (``utils/timing.py``): ``mg.precond`` (a preconditioner's build),
+``newton.step`` (``cycles``, the damping ``theta``) with its
+``newton.residual`` reads, ``mg.refine`` (``cycles``); each FGMRES call
+is an ``fgmres`` span inside them.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ from ..fem.assemble import Operator, apply_bc_vector, gather_sum
 from ..fem.spaces import TaylorHoodSpace, BoundaryQuad, incidence
 from ..mesh.locate import locate_points
 from ..ops import stencil as stencil_mod
+from ..utils import timing
 from . import krylov
 from .newton import NewtonResult
 
@@ -274,6 +282,7 @@ def _coarse_solver(mg: MGContext, dtype, omega: float, pre: int,
         "build the hierarchy with system.build_mg_hierarchy")
 
 
+@timing.span("mg.precond")
 def make_block_preconditioner(mg: MGContext, space_f: TaylorHoodSpace,
                               op_mixed: Operator,
                               op_mixed_c: Optional[Operator] = None,
@@ -373,15 +382,21 @@ def refinement_operators(op: Operator, op_c: Optional[Operator],
 
 def refinement_round(b: torch.Tensor, x: torch.Tensor, M32: Callable,
                      mv64: Callable, mv32: Callable, restart: int = 60,
-                     max_restarts: int = 4, inner_tol: float = 1e-6):
+                     max_restarts: int = 4, inner_tol: float = 1e-6,
+                     graph: bool = False):
     """One float64 refinement round: the exact residual b − A x, a
-    float32 FGMRES correction, and the exact residual norm after it.
-    Returns (x', ‖b − A x'‖, FGMRES cycles)."""
-    r = b - mv64(x)
-    sol = krylov.fgmres(mv32, r.to(torch.float32), M=M32, restart=restart,
-                        max_restarts=max_restarts, tol=inner_tol)
-    x = x + sol.x.to(torch.float64)
-    return x, float(torch.linalg.norm(b - mv64(x))), sol.iterations
+    float32 FGMRES correction (``graph`` as ``krylov.fgmres``'s), and the
+    exact residual norm after it. Returns (x', ‖b − A x'‖, FGMRES
+    cycles); the span ``mg.refine``."""
+    with timing.span("mg.refine") as span:
+        r = b - mv64(x)
+        sol = krylov.fgmres(mv32, r.to(torch.float32), M=M32,
+                            restart=restart, max_restarts=max_restarts,
+                            tol=inner_tol, graph=graph)
+        x = x + sol.x.to(torch.float64)
+        rnorm = timing.to_host(torch.linalg.norm(b - mv64(x)))
+        span.set(cycles=sol.iterations)
+    return x, rnorm, sol.iterations
 
 
 def solve_operator_mg(op: Operator, op_c: Optional[Operator],
@@ -397,18 +412,20 @@ def solve_operator_mg(op: Operator, op_c: Optional[Operator],
     rounds (``refinement_round``), until ‖b − A x‖ ≤ tol·‖b‖ or
     ``max_rounds``. ``op_c`` (the coarse assembly of the same form) is
     needed for ``coarse_krylov`` > 0 only; ``matvec_of`` as in
-    ``refinement_operators``."""
+    ``refinement_operators``. Without either, the rounds replay one CUDA
+    graph of the Krylov cycle on a CUDA device (``krylov.fgmres``)."""
     b = apply_bc_vector(b, op.bc_dofs, bc_vals)
     M32, mv64, mv32 = refinement_operators(
         op, op_c, mg, space_f, pre=pre, post=post,
         coarse_krylov=coarse_krylov, nu_scale=nu_scale, matvec_of=matvec_of)
-    bnorm = float(torch.linalg.norm(b))
+    bnorm = timing.to_host(torch.linalg.norm(b))
     target = tol * max(bnorm, 1e-300)
+    graph = coarse_krylov == 0 and matvec_of is None
     x = torch.zeros_like(b)
     rnorm, rounds, inner = bnorm, 0, 0
     while rnorm > target and rounds < max_rounds:
         x, rnorm, cycles = refinement_round(b, x, M32, mv64, mv32, restart,
-                                            max_restarts, inner_tol)
+                                            max_restarts, inner_tol, graph)
         rounds += 1
         inner += cycles
     return MGSolveResult(x, rnorm, inner, rnorm <= target, rounds, bnorm)
@@ -430,28 +447,34 @@ def newton_step_mg(op: Operator, bc_residual: Callable, M32: Callable,
                    mg: MGContext, w: torch.Tensor, r: torch.Tensor,
                    rnorm: float, tol: float, restart: int = 60,
                    max_restarts: int = 4,
-                   matvec_of: Optional[Callable] = None):
+                   matvec_of: Optional[Callable] = None,
+                   graph: bool = False):
     """One Newton step on the Jacobian ``op`` at w: a float32 FGMRES solve
-    of op·dw = −r preconditioned by ``M32``, then residual-monotone
-    damping with the full step preferred (θ = 1, ½, ¼, ⅛: the first that
-    lowers ‖r‖, else the full step). ``matvec_of`` (op → matvec, in the
-    dtype of its input) replaces the Krylov matvec. Returns (w', r',
-    ‖r'‖, FGMRES cycles)."""
-    mv32 = (_stencil_or_scatter(mg.st_mixed, op, torch.float32)
-            if matvec_of is None else matvec_of(op))
-    sol = krylov.fgmres(mv32, (-r).to(torch.float32), M=M32,
-                        restart=restart, max_restarts=max_restarts, tol=tol)
-    dw = sol.x.to(torch.float64)
-    best = None
-    for theta in (1.0, 0.5, 0.25, 0.125):
-        cand = w + theta * dw
-        r_c = bc_residual(cand)
-        n_c = float(torch.linalg.norm(r_c))
-        if best is None:
-            best = (cand, r_c, n_c)
-        if n_c < rnorm:
-            return cand, r_c, n_c, sol.iterations
-    return (*best, sol.iterations)
+    of op·dw = −r preconditioned by ``M32`` (``graph`` as
+    ``krylov.fgmres``'s), then residual-monotone damping with the full
+    step preferred (θ = 1, ½, ¼, ⅛: the first that lowers ‖r‖, else the
+    full step). ``matvec_of`` (op → matvec, in the dtype of its input)
+    replaces the Krylov matvec. Returns (w', r', ‖r'‖, FGMRES cycles);
+    the span ``newton.step``."""
+    with timing.span("newton.step") as span:
+        mv32 = (_stencil_or_scatter(mg.st_mixed, op, torch.float32)
+                if matvec_of is None else matvec_of(op))
+        sol = krylov.fgmres(mv32, (-r).to(torch.float32), M=M32,
+                            restart=restart, max_restarts=max_restarts,
+                            tol=tol, graph=graph)
+        dw = sol.x.to(torch.float64)
+        best = None
+        for theta in (1.0, 0.5, 0.25, 0.125):
+            cand = w + theta * dw
+            with timing.span("newton.residual"):
+                r_c = bc_residual(cand)
+                n_c = timing.to_host(torch.linalg.norm(r_c))
+            if best is None or n_c < rnorm:
+                best = (cand, r_c, n_c, theta)
+            if n_c < rnorm:
+                break
+        span.set(cycles=sol.iterations, theta=best[3])
+    return (*best[:3], sol.iterations)
 
 
 def newton_solve_mg(residual_fn: Callable[[torch.Tensor], torch.Tensor],
@@ -478,7 +501,14 @@ def newton_solve_mg(residual_fn: Callable[[torch.Tensor], torch.Tensor],
     with a Krylov tolerance of min(step_tol, 1e-8) push the residual well
     below it; they count as iterations. ``krylov_cycles`` lists each
     step's FGMRES cycles. ``matvec_of`` (op → matvec, in the dtype of its
-    input) replaces the Krylov matvec of every step."""
+    input) replaces the Krylov matvec of every step. Without it and
+    without ``coarse_krylov``, the steps replay one CUDA graph of the
+    Krylov cycle on a CUDA device (``krylov.fgmres``): the stencil
+    Jacobian of each step is loaded into one ``ReloadableMatvec``."""
+    graph = coarse_krylov == 0 and matvec_of is None
+    step_matvec = matvec_of
+    if graph and mg.st_mixed is not None:
+        step_matvec = stencil_mod.ReloadableMatvec(mg.st_mixed).load
     bc_residual = bc_residual_fn(residual_fn, bc_dofs, bc_vals, w0.shape[0])
     op0 = operator_fn(w0)
     op0_c = coarse_operator_fn(w0) if coarse_operator_fn is not None else None
@@ -491,12 +521,14 @@ def newton_solve_mg(residual_fn: Callable[[torch.Tensor], torch.Tensor],
     def step(w, r, rnorm, tol):
         w, r, rnorm, n_cyc = newton_step_mg(
             operator_fn(w), bc_residual, M32, mg, w, r, rnorm, tol,
-            restart=restart, max_restarts=max_restarts, matvec_of=matvec_of)
+            restart=restart, max_restarts=max_restarts,
+            matvec_of=step_matvec, graph=graph)
         cycles.append(n_cyc)
         return w, r, rnorm
 
-    r = bc_residual(w0)
-    r0norm = float(torch.linalg.norm(r))
+    with timing.span("newton.residual"):
+        r = bc_residual(w0)
+        r0norm = timing.to_host(torch.linalg.norm(r))
     w, rnorm, it = w0, r0norm, 0
     while rnorm > atol and rnorm > rtol * r0norm and it < max_iter:
         w, r, rnorm = step(w, r, rnorm, step_tol)

@@ -1059,7 +1059,7 @@ def make_newton_stager(prob: OCPProblem, ode_impl=None, matvec_of=None,
         op0_c = coarse(w0) if coarse is not None else None
         r0 = mg_mod.bc_residual_fn(_residual_at(prob, f_quad, nu),
                                    prob.bc_dofs, prob.bc_vals, n)(w0)
-        return op0, op0_c, r0, float(torch.linalg.norm(r0))
+        return op0, op0_c, r0, timing.to_host(torch.linalg.norm(r0))
 
     def step(f_quad, w, r, rnorm, op0, op0_c, nu, nu_scale, tol):
         nu = float(nu)
@@ -1177,7 +1177,7 @@ def make_adjoint_stager(prob: OCPProblem, adjoint_rhs_impl=None,
         b = assemble.apply_bc_vector(b, op.bc_dofs, prob.bc_vals)
         u, _ = prob.space.split(fwd.w)
         return (b, op, op_c, assemble.divergence_l2(prob.space, u),
-                float(torch.linalg.norm(b)))
+                timing.to_host(torch.linalg.norm(b)))
 
     def round_(op, op_c, b, x):
         ops = mg_mod.refinement_operators(
