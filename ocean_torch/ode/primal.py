@@ -76,8 +76,10 @@ def finish_trajectories(loc: Locator, eval_u: Callable, x: torch.Tensor,
     ks = torch.arange(nt, device=x.device)[None, :]
     kf = kfail.to(torch.int64)[:, None]
     u_fail = torch.where((ks < kf)[..., None], u_values, 0.0)
-    u_fail = u_fail + torch.where((ks == kf + 1)[..., None],
-                                  u_center[None, None, :], 0.0)
+    # in place: the same values, one trajectory-sized buffer fewer at the
+    # peak of a forward solve's memory
+    u_fail += torch.where((ks == kf + 1)[..., None], u_center[None, None, :],
+                          0.0)
     m = failed[:, None, None]
     x = torch.where(m, center.expand_as(x), x)
     u_values = torch.where(m, u_fail, u_values)

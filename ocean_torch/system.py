@@ -69,6 +69,7 @@ from .ops import linalg
 from .solve import (newton_solve, solve_operator, solve_operator_reuse_t,
                     GradProjector, NewtonResult)
 from .solve import mg as mg_mod
+from .solve.newton import chord_solve, float32_tables
 from .solve.mg import MGContext
 from .utils import timing
 
@@ -479,16 +480,6 @@ def continuation_viscosities(nu: float, n_rungs: int) -> list:
     return [ratio ** k for k in range(n_rungs + 1)]
 
 
-def _float32_tables(tables):
-    """A copy of a space or a quadrature with its floating tables cast to
-    float32 (index tables and the locator as they are)."""
-    return dataclasses.replace(tables, **{
-        f.name: getattr(tables, f.name).to(torch.float32)
-        for f in dataclasses.fields(tables)
-        if torch.is_tensor(getattr(tables, f.name))
-        and getattr(tables, f.name).is_floating_point()})
-
-
 def _residual_at(prob: OCPProblem, f_quad: torch.Tensor, nu: float):
     return lambda w: assemble.ns_residual(prob.space, prob.bq, w, f_quad, nu)
 
@@ -550,7 +541,13 @@ def solve_ns(prob: OCPProblem, f_quad: torch.Tensor,
     solution's basin (the staged runner's warm-started probes). It skips
     the ladder, which only finds the basin; below ν = 1 the dense path
     then factorizes J(w_start) each step rather than reusing the Stokes
-    factor of w = 0. The "ns_newton" record says ``warm_start``."""
+    factor of w = 0. The "ns_newton" record says ``warm_start``.
+
+    The chord on a CUDA device, with the problem's Stokes factor, runs
+    each step as a replay of a CUDA graph (``solve/newton.py::
+    chord_solve``): the numbers of the eager chord, bit for bit. The
+    "ns_newton" record and span give ``graph_steps``, the steps that ran
+    so (0 elsewhere)."""
     with timing.span("ns_newton") as span:
         warm = w_start is not None
         w = (w_start if warm
@@ -572,11 +569,16 @@ def solve_ns(prob: OCPProblem, f_quad: torch.Tensor,
 
         if ladder or prob.linear_solver == "mg" or (warm and prob.nu < 1.0):
             res = _newton_at(prob, f_quad, prob.nu, w, matvec_of=matvec_of)
+        elif prob.newton_reuse_lu and prob.fac0 is not None and w.is_cuda:
+            res = chord_solve(prob.space, prob.bq, f_quad, prob.nu, w,
+                              prob.bc_dofs, prob.bc_vals, prob.fac0,
+                              prob.newton_correction_iters,
+                              float32=prob.newton_chord_f32)
         else:
             residual32 = None
             if prob.newton_chord_f32 and prob.newton_reuse_lu:
-                space32 = _float32_tables(prob.space)
-                bq32 = _float32_tables(prob.bq)
+                space32 = float32_tables(prob.space)
+                bq32 = float32_tables(prob.bq)
                 f_quad32 = f_quad.to(torch.float32)
 
                 def residual32(w32):
@@ -590,8 +592,10 @@ def solve_ns(prob: OCPProblem, f_quad: torch.Tensor,
                                fac0=prob.fac0, residual_fn32=residual32)
         _log_solve(prob, solve="ns_newton", iterations=res.iterations,
                    residual_norm=res.residual_norm, converged=res.converged,
-                   krylov_cycles=list(res.krylov_cycles), warm_start=warm)
-        span.set(iterations=iterations + res.iterations)
+                   krylov_cycles=list(res.krylov_cycles), warm_start=warm,
+                   graph_steps=res.graph_steps)
+        span.set(iterations=iterations + res.iterations,
+                 graph_steps=res.graph_steps)
         return res
 
 

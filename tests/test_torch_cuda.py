@@ -26,6 +26,10 @@ there NaN equals NaN, ``torch_kernel_cases.same``), and the plain
 location on the card is the CPU's there too. The table-path primal ODE
 (``csrc/table_ode.cu``) is held to its plain mirror on the same ODE hard
 inputs, read at the P2 dofs, and drives the L-shape's production job.
+The chord Newton's CUDA graph (``solve/newton.py::ChordGraph``) gives the
+eager chord's w, iterations and residual norms bit for bit, in float64
+and float32, on the inverse and on LU factors, and the same J in a
+three-iteration Armijo run; one capture serves a problem and its copies.
 """
 
 import dataclasses
@@ -842,3 +846,141 @@ def test_lshape_job_through_the_table_kernel(dev, tmp_path, monkeypatch):
     assert list(res.inner_iterations) == [1] * 28
     assert kernels.LAUNCHES["table_ode"] == len(calls) > 28
     assert kernels.LAUNCHES["primal_ode"] == 0
+
+
+# --- the chord Newton's CUDA graph (solve/newton.py::ChordGraph) -------------------
+
+def _chord_problem(dev, **kw):
+    """The square cell's program (chord Newton on the explicit float32
+    inverse, kernels 1-3) at Nx=16, K=400 on a 20 × 20 grid, nt=200."""
+    from ocean_torch import system
+    from ocean_torch.config import OCPConfig
+    gx, gy = np.meshgrid(np.linspace(0.1, 0.4, 20), np.linspace(0.25, 1.75, 20))
+    x0 = np.stack([gx.ravel(), gy.ravel()], axis=1)
+    u_d = 0.05 * np.random.default_rng(22).standard_normal((400, 200, 2))
+    kw = dict(dict(newton_reuse_lu=True, dense_apply="inverse",
+                   psrc_method="fused", ode_backend="pallas"), **kw)
+    cfg = OCPConfig(ud_experiment="400_buoys", unit_square_resolution=16,
+                    num_steps=3, use_line_search=True, LR=5.0, LR_MAX=5.0,
+                    **kw)
+    return cfg, system.build_problem(cfg, u_d=u_d, x0=x0, device=dev)
+
+
+def _eager_chord(space, bq, f_quad, nu, w0, bc_dofs, bc_vals, fac0,
+                 correction_iters=1, float32=False):
+    """``chord_solve``'s numbers by the eager ``newton_solve``, as
+    ``system.solve_ns`` calls it off the card."""
+    from ocean_torch.fem import assemble
+    from ocean_torch.solve import newton
+    residual32 = None
+    if float32:
+        space32 = newton.float32_tables(space)
+        bq32 = newton.float32_tables(bq)
+        f_quad32 = f_quad.to(torch.float32)
+
+        def residual32(w32):
+            return assemble.ns_residual(space32, bq32, w32, f_quad32, nu)
+    return newton.newton_solve(
+        lambda w: assemble.ns_residual(space, bq, w, f_quad, nu), None, w0,
+        bc_dofs, bc_vals, reuse_factorization=True,
+        correction_iters=correction_iters, fac0=fac0,
+        residual_fn32=residual32)
+
+
+@pytest.mark.parametrize("float32", [False, True], ids=["f64", "f32"])
+def test_the_chord_graph_is_the_eager_chord(dev, float32):
+    """Three loads from w = 0 and a warm start: the replayed solve equals
+    the eager one bit for bit (w, iterations, residual norm), every step a
+    replay, all of them, and ``solve_ns`` on a ``dataclasses.replace``
+    copy of the problem, served by one capture; another factor gets a
+    capture of its own and the same numbers."""
+    from ocean_torch import system
+    from ocean_torch.ops import linalg
+    from ocean_torch.solve import newton
+    _, prob = _chord_problem(dev, newton_chord_f32=float32)
+    assert isinstance(prob.fac0, linalg.InvSolver)
+    loads = [system.initial_control(prob, c).quad for c in (0, 4)]
+    loads.append(20.0 * system.initial_control(prob, 2).quad)
+    zero = torch.zeros(prob.space.ndof, dtype=torch.float64, device=dev)
+    args = (prob.bc_dofs, prob.bc_vals, prob.fac0,
+            prob.newton_correction_iters)
+    starts = [(f, zero) for f in loads]
+    graphs, results = [], []
+    for k in range(4):
+        f_quad, w0 = (starts[k] if k < 3
+                      else (0.9 * loads[2], results[2].w))
+        eager = _eager_chord(prob.space, prob.bq, f_quad, prob.nu, w0, *args,
+                             float32=float32)
+        got = newton.chord_solve(prob.space, prob.bq, f_quad, prob.nu, w0,
+                                 *args, float32=float32)
+        graphs.append(newton._GRAPHS[zero.device])
+        assert graphs[-1].graphed
+        assert torch.equal(got.w, eager.w)
+        assert (got.iterations, got.residual_norm, got.converged) == \
+            (eager.iterations, eager.residual_norm, eager.converged)
+        assert got.graph_steps == got.iterations >= 1
+        results.append(eager)
+    assert results[2].iterations >= 3
+    copy = dataclasses.replace(prob, solve_log=[])
+    res = system.solve_ns(copy, loads[0])
+    assert torch.equal(res.w, results[0].w)
+    assert copy.solve_log[-1]["graph_steps"] == res.iterations
+    assert all(g is graphs[0] for g in graphs)
+    assert newton._GRAPHS[zero.device] is graphs[0]
+    other = dataclasses.replace(copy, fac0=linalg.InvSolver(
+        prob.fac0.ainv.clone(), prob.fac0.ainv_t))
+    res = system.solve_ns(other, loads[2])
+    assert newton._GRAPHS[zero.device] is not graphs[0]
+    assert torch.equal(res.w, results[2].w)
+    assert res.graph_steps == res.iterations == results[2].iterations
+
+
+@pytest.mark.parametrize("float32", [False, True], ids=["lu64", "lu32"])
+def test_the_chord_graph_on_lu_factors(dev, float32):
+    """The chord on LU factors (``torch.linalg.lu_solve`` inside the
+    graph), float64 and float32: the replayed solve is the eager one."""
+    from ocean_torch import system
+    from ocean_torch.solve import newton
+    _, prob = _chord_problem(dev, newton_chord_f32=float32,
+                             dense_apply="lu")
+    assert prob.fac0.lu.dtype == (torch.float32 if float32
+                                  else torch.float64)
+    zero = torch.zeros(prob.space.ndof, dtype=torch.float64, device=dev)
+    f_quad = 20.0 * system.initial_control(prob, 2).quad
+    args = (prob.space, prob.bq, f_quad, prob.nu, zero, prob.bc_dofs,
+            prob.bc_vals, prob.fac0, 1)
+    eager = _eager_chord(*args, float32=float32)
+    got = newton.chord_solve(*args, float32=float32)
+    assert torch.equal(got.w, eager.w)
+    assert (got.iterations, got.residual_norm) == (eager.iterations,
+                                                   eager.residual_norm)
+    assert got.graph_steps == got.iterations >= 3
+
+
+def test_the_chord_graph_leaves_a_gd_run_bit_for_bit(dev, monkeypatch):
+    """Three Armijo iterations with the graph and with the eager chord: J
+    of every iteration, the probes and the control equal bit for bit;
+    every Newton step of the graphed run a replay."""
+    from ocean_torch import system
+    from ocean_torch.opt.driver import run_gradient_descent
+    cfg, prob = _chord_problem(dev)
+    f0 = system.initial_control(prob, 4)
+    runs = {}
+    for mode in ("graph", "eager"):
+        if mode == "eager":
+            monkeypatch.setattr(system, "chord_solve", _eager_chord)
+        p = dataclasses.replace(prob, solve_log=[])
+        runs[mode] = (run_gradient_descent(cfg, p, f0, escape_threshold=10,
+                                           verbose=False), p.solve_log)
+    (g, g_log), (e, e_log) = runs["graph"], runs["eager"]
+    assert g.iterations_run == e.iterations_run == 3
+    assert g.j_array == e.j_array
+    assert g.inner_iterations == e.inner_iterations
+    assert torch.equal(g.f.quad, e.f.quad)
+    newton_g = [r for r in g_log if r["solve"] == "ns_newton"]
+    assert len(newton_g) >= 4
+    assert all(r["graph_steps"] == r["iterations"] for r in newton_g)
+    assert all(r["graph_steps"] == 0 for r in e_log
+               if r["solve"] == "ns_newton")
+    assert [r["iterations"] for r in newton_g] == \
+        [r["iterations"] for r in e_log if r["solve"] == "ns_newton"]
