@@ -206,11 +206,11 @@ Phases, in order; any failure exits non-zero before the last line:
     matplotlib or h5py, leaves CUDA uninitialized, and
     ``ocean_torch.OCPConfig`` resolves;
 22. path 13, the host-stepped solver layer (``system.make_staged_pair``,
-    the stepped Newton and the staged adjoint, the driver's two loops,
+    the stepped Newton and the staged adjoint, the driver's two modes,
     ``scripts/hires_mg_run_torch.py::run_gd_staged``), counts set to 0
     before and read after each part and summed. 13a: path 3's run with
-    ``staged_driver=False`` (the per-stage loop; path 3 ran the staged
-    loop): J, LR, probes, ‖div u‖ and the final control equal bit for
+    ``staged_driver=False`` (the per-stage mode; path 3 ran the staged
+    mode): J, LR, probes, ‖div u‖ and the final control equal bit for
     bit. 13b: path 9a's problem (Nx=64, ν = 1, mg): ``run_newton_staged``
     against ``newton_solve_mg`` (the same iteration count, w within
     1e-12·max|w|), with ``max_refreeze=2, stall_ratio=0`` (two
@@ -3084,8 +3084,8 @@ def add_counts(total: dict, counts: dict) -> dict:
 
 def path13a_driver_loops(cfg3, res3, tmp: str, card: str) -> dict:
     """13a: path 3's run with ``staged_driver=False`` (the per-stage
-    loop): J, LR, probes and the final control equal bit for bit to path
-    3's, which ran the staged loop. Returns the launches."""
+    mode): J, LR, probes and the final control equal bit for bit to path
+    3's, which ran the staged mode. Returns the launches."""
     import torch
     from ocean_torch import kernels
     from ocean_torch.pipelines import limits
@@ -3104,12 +3104,12 @@ def path13a_driver_loops(cfg3, res3, tmp: str, card: str) -> dict:
           and res.divs_u == res3.divs_u
           and torch.equal(res.f.quad, res3.f.quad)
           and torch.equal(res.f.p2, res3.f.p2),
-          f"path 13a: the per-stage loop gives J {res.j_array} LR {res.lr} "
-          f"probes {res.inner_iterations}, the staged loop (path 3) "
+          f"path 13a: the per-stage mode gives J {res.j_array} LR {res.lr} "
+          f"probes {res.inner_iterations}, the staged mode (path 3) "
           f"{res3.j_array} {res3.lr} {res3.inner_iterations}")
     print(f"path 13a (limits.run, staged_driver=False, the per-stage "
-          f"loop): J, LR {res.lr!r}, probes {res.inner_iterations} and the "
-          f"final control equal bit for bit to path 3's staged loop; "
+          f"mode): J, LR {res.lr!r}, probes {res.inner_iterations} and the "
+          f"final control equal bit for bit to path 3's staged mode; "
           f"{time.perf_counter() - t0:.2f} s with set-up and artifacts, "
           f"launches {counts} on {card}", flush=True)
     return counts

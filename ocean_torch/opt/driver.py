@@ -11,17 +11,22 @@ module): the optimization loop of the reference with identical semantics:
     pipeline, 10 for the limits pipeline),
   * outer/inner wall-clock timings per iteration.
 
-Two loops, as in the JAX package. The staged loop (``staged=True``, the
-default, ``OCPConfig.staged_driver``) drives the stages of
-``system.make_staged_pair``: one ``grad`` a iteration, one ``probe`` a
-line-search trial, and the accepted probe's forward state carried into
-the next iteration. The per-stage loop (``staged=False``, or
-``reuse_ls_forward=False``) calls ``forward`` and the adjoint solve
-itself. With the defaults both give bit-identical (J, LR) trajectories.
-They differ where the line search stops at ``max_line_search_iters``:
-the staged loop then takes the probe made at the LR before the last
-decrement while carrying the decremented LR; the per-stage loop updates
-the control with the decremented LR.
+One loop over the stages of ``system.make_staged_pair`` serves both
+modes of the JAX package's two loops. The staged mode (``staged=True``,
+the default, ``OCPConfig.staged_driver``, with ``reuse_ls_forward``)
+and the per-stage mode (either one False) differ in three things:
+
+  * the staged mode carries the last probe's forward state and J into
+    the next iteration; the per-stage mode carries them only where the
+    Armijo test accepted the probe and ``reuse_ls_forward`` is set (the
+    probe's control is then the updated control exactly), and otherwise
+    solves the forward problem anew;
+  * where the line search stops at ``max_line_search_iters``, the staged
+    mode takes the probe made at the LR before the last decrement while
+    carrying the decremented LR; the per-stage mode updates the control
+    with the decremented LR;
+  * without the line search the staged mode makes one probe at the LR
+    (the state it carries); the per-stage mode makes none.
 
 The stepped multigrid Newton and the staged adjoint
 (``system.run_newton_staged``, ``run_adjoint_staged``) are driven by the
@@ -42,8 +47,7 @@ from .. import control as ctrl_mod
 from .. import system as sys_mod
 from ..config import OCPConfig
 from ..control import Control
-from ..fem import assemble
-from ..utils import timing
+from ..utils import graphs, timing
 from . import grad_check as grad_check_mod
 
 
@@ -80,164 +84,27 @@ def run_gradient_descent(cfg: OCPConfig, prob: "sys_mod.OCPProblem",
                          reuse_ls_forward: bool = True,
                          staged: bool = True,
                          verbose: bool = True) -> GDRunResult:
-    """Run up to cfg.num_steps GD iterations. ``escape_threshold`` defaults
-    to K/2 (OCP pipeline); the limits pipeline passes 10.
+    """Run up to cfg.num_steps GD iterations over the stages of
+    ``system.make_staged_pair``. ``escape_threshold`` defaults to K/2
+    (OCP pipeline); the limits pipeline passes 10.
 
-    ``reuse_ls_forward=True`` (default): when the Armijo search accepts a
-    step, the accepted probe's forward state is the next iteration's
-    forward state (the updated control equals the probed control exactly
-    and the solve is deterministic), which skips one NS + ODE solve per
-    iteration with identical results. Pass False to reproduce the
-    reference's per-iteration outer/inner timing split.
+    ``staged and reuse_ls_forward`` (the default) selects the staged
+    mode, else the per-stage mode (module docstring).
+    ``reuse_ls_forward`` skips one NS + ODE solve per iteration whose
+    probe was accepted (its control is the updated control exactly and
+    the solve is deterministic); False keeps the reference's
+    per-iteration outer/inner timing split.
 
     A chord-Newton solve (``prob.newton_reuse_lu``) whose residual is not
     finite diverged on its stale factors and is re-solved with fresh
     factorizations. ``on_iteration(i, f, fwd, z, j_array)`` runs after
-    each iteration's records.
-
-    ``staged=True`` (default) runs the staged loop (``_run_gd_staged``),
-    which implies the ``reuse_ls_forward`` trade; ``staged=False`` or
-    ``reuse_ls_forward=False`` the per-stage loop. The whole run is the
-    span ``gd_job``, each iteration a ``gd_iteration``
-    (``utils/timing.py``)."""
+    each iteration's records. The whole run is the span ``gd_job``, each
+    iteration a ``gd_iteration`` (``utils/timing.py``)."""
     if escape_threshold is None:
         escape_threshold = prob.K / 2
     if df is None:
         df = sys_mod.fd_direction(prob)
-    if staged and reuse_ls_forward:
-        return _run_gd_staged(cfg, prob, f, escape_threshold, df,
-                              on_iteration, grad_check_dir, verbose)
-    dev = prob.device
-
-    lr = cfg.LR
-    j_array: List[float] = []
-    divs_u: List[float] = []
-    x_array: List[np.ndarray] = []
-    outer_times: List[float] = []
-    inner_times: List[float] = []
-    inner_iterations: List[int] = []
-    exit_reason = "num_steps"
-    last_fwd = last_z = None
-    it_run = 0
-    fwd_next = None
-
-    for i in range(cfg.num_steps):
-        with timing.span("gd_iteration", i=i):
-            if verbose:
-                print(f"Gradient descent iteration: {i}")
-            t_outer = _clock(dev)
-            fwd = (fwd_next if fwd_next is not None
-                   else sys_mod.forward(prob, f.quad))
-            fwd_next = None
-            if (prob.newton_reuse_lu
-                    and not math.isfinite(fwd.newton.residual_norm)):
-                if verbose:
-                    print("fast-path Newton diverged; re-solving with "
-                          "fresh factorizations")
-                fwd = sys_mod.forward(
-                    dataclasses.replace(prob, newton_reuse_lu=False), f.quad)
-            z, adj_ok = sys_mod._solve_adjoint_flagged(prob, fwd)
-            g = sys_mod.reduced_gradient(prob, f, z)
-            outer_times.append(_clock(dev) - t_outer)
-            if not fwd.newton.converged:
-                print(f"WARNING: Newton did not converge at iteration {i} "
-                      f"(residual {fwd.newton.residual_norm:.3e})")
-            if not adj_ok:
-                print(f"WARNING: adjoint refinement not converged at "
-                      f"iteration {i}")
-            last_fwd, last_z = fwd, z
-            with timing.span("trajectory_copy",
-                             bytes=fwd.x.numel() * fwd.x.element_size()):
-                x_array.append(timing.to_host(fwd.x))
-            it_run = i + 1
-
-            # gradient check at i == 0
-            if cfg.grad_check and i == 0:
-                gradj0 = timing.to_host(
-                    ctrl_mod.boundary_inner(prob.bq, g, df))
-                j0 = timing.to_host(sys_mod.cost(prob, fwd.u_values, f.quad))
-                grad_check_mod.grad_test(prob, f, df, j0, gradj0, i,
-                                         out_dir=grad_check_dir)
-
-            # Armijo line search
-            t_inner = _clock(dev)
-            inner = 0
-            if cfg.use_line_search:
-                df = Control(-g.quad, -g.p2)
-                gradj = timing.to_host(ctrl_mod.boundary_inner(prob.bq, g, df))
-                cond = -cfg.c_armijo * gradj
-                j_old = timing.to_host(
-                    sys_mod.cost(prob, fwd.u_values, f.quad))
-                while True:
-                    if verbose:
-                        print("line search at " + str(lr))
-                    inner += 1
-                    with timing.span("probe"):
-                        f_ls_quad = f.quad + lr * df.quad
-                        fwd_ls = sys_mod.forward(prob, f_ls_quad)
-                        j_new = timing.to_host(
-                            sys_mod.cost(prob, fwd_ls.u_values, f_ls_quad))
-                    if j_old - j_new >= lr * cond:
-                        if reuse_ls_forward:
-                            # accepted probe control == updated control
-                            fwd_next = fwd_ls
-                        break
-                    new_lr = max(cfg.tau * lr, cfg.LR_MIN)
-                    if new_lr == lr:
-                        # floored at LR_MIN: re-probing is the identical
-                        # solve; accept after the one failed probe
-                        if verbose:
-                            print("line search floored at LR_MIN; accepting")
-                        break
-                    lr = new_lr
-                    if inner >= cfg.max_line_search_iters:
-                        if verbose:
-                            print("line search hit safety bound; accepting")
-                        break
-            inner_times.append(_clock(dev) - t_inner)
-            inner_iterations.append(inner)
-
-            # control update + records
-            f = f.axpy(-lr, g)
-            j_array.append(timing.to_host(
-                sys_mod.cost(prob, fwd.u_values, f.quad)))
-            u, _ = prob.space.split(fwd.w)
-            divs_u.append(timing.to_host(
-                assemble.divergence_l2(prob.space, u)))
-
-            if on_iteration is not None:
-                on_iteration(i, f, fwd, z, j_array)
-
-            # exits
-            if i > 5 and abs(j_array[i] - j_array[i - 1]) < cfg.conv_crit:
-                if verbose:
-                    print("cost small enough")
-                exit_reason = "converged"
-                break
-            elif timing.to_host(fwd.mask.sum()) > escape_threshold:
-                if verbose:
-                    print("too many buoys out of domain .. exiting")
-                exit_reason = "buoy_escape"
-                break
-
-    last_u_values = (None if last_fwd is None
-                     else timing.to_host(last_fwd.u_values))
-    return GDRunResult(j_array, divs_u, x_array, outer_times, inner_times,
-                       inner_iterations, f, lr, last_fwd, last_z,
-                       last_u_values, exit_reason, it_run)
-
-
-def _run_gd_staged(cfg: OCPConfig, prob: "sys_mod.OCPProblem", f: Control,
-                   escape_threshold: float, df: Control,
-                   on_iteration: Optional[Callable],
-                   grad_check_dir: Optional[str],
-                   verbose: bool) -> GDRunResult:
-    """The loop over ``system.make_staged_pair``: per iteration one
-    ``grad``, one ``probe`` per line-search trial and one ``record``; the
-    accepted probe's forward state is the next iteration's. The semantics
-    of the per-stage loop (LR not reset, J(old u, new f), the exits, the
-    re-solve of a diverged chord Newton, the gradient check at i = 0),
-    apart from the safety bound of the line search (module docstring)."""
+    carry = staged and reuse_ls_forward
     progs = sys_mod.make_staged_pair(prob)
     dev = prob.device
     lr = cfg.LR
@@ -251,14 +118,6 @@ def _run_gd_staged(cfg: OCPConfig, prob: "sys_mod.OCPProblem", f: Control,
     last_fwd = last_z = None
     it_run = 0
 
-    def fresh_resolve(f_quad):
-        if verbose:
-            print("fast-path Newton diverged; re-solving with "
-                  "fresh factorizations")
-        fwd_f = sys_mod.forward(
-            dataclasses.replace(prob, newton_reuse_lu=False), f_quad)
-        return fwd_f, timing.to_host(progs.record(fwd_f.u_values, f_quad))
-
     fwd, j_old = None, None
     for i in range(cfg.num_steps):
         with timing.span("gd_iteration", i=i):
@@ -270,7 +129,12 @@ def _run_gd_staged(cfg: OCPConfig, prob: "sys_mod.OCPProblem", f: Control,
                 j_old = timing.to_host(j_dev)
             if (prob.newton_reuse_lu
                     and not math.isfinite(fwd.newton.residual_norm)):
-                fwd, j_old = fresh_resolve(f.quad)
+                if verbose:
+                    print("fast-path Newton diverged; re-solving with "
+                          "fresh factorizations")
+                fwd = sys_mod.forward(
+                    dataclasses.replace(prob, newton_reuse_lu=False), f.quad)
+                j_old = timing.to_host(progs.record(fwd.u_values, f.quad))
             z, g, gradj_dev, div_dev, adj_ok = progs.grad(f, fwd)
             gradj = timing.to_host(gradj_dev)
             outer_times.append(_clock(dev) - t_outer)
@@ -295,7 +159,7 @@ def _run_gd_staged(cfg: OCPConfig, prob: "sys_mod.OCPProblem", f: Control,
 
             # Armijo line search; j_old is the accepted state's J
             t_inner = _clock(dev)
-            inner = 0
+            inner, accepted = 0, False
             if cfg.use_line_search:
                 cond = -cfg.c_armijo * gradj
                 while True:
@@ -305,19 +169,21 @@ def _run_gd_staged(cfg: OCPConfig, prob: "sys_mod.OCPProblem", f: Control,
                     f_c, fwd_c, j_dev = progs.probe(f, g, lr)
                     j_new = timing.to_host(j_dev)
                     if j_old - j_new >= lr * cond:
+                        accepted = True
                         break
                     new_lr = max(cfg.tau * lr, cfg.LR_MIN)
                     if new_lr == lr:
+                        # floored at LR_MIN: re-probing is the identical
+                        # solve; accept after the one failed probe
                         if verbose:
                             print("line search floored at LR_MIN; accepting")
                         break
                     lr = new_lr
                     if inner >= cfg.max_line_search_iters:
-                        # the probe made at the LR before this decrement
                         if verbose:
                             print("line search hit safety bound; accepting")
                         break
-            else:
+            elif carry:
                 f_c, fwd_c, j_dev = progs.probe(f, g, lr)
                 j_new = timing.to_host(j_dev)
             inner_times.append(_clock(dev) - t_inner)
@@ -325,7 +191,12 @@ def _run_gd_staged(cfg: OCPConfig, prob: "sys_mod.OCPProblem", f: Control,
 
             # control update + records
             fwd_i = fwd
-            f, fwd, j_old = f_c, fwd_c, j_new
+            if carry or (accepted and reuse_ls_forward):
+                # the last probe; in the staged mode at the safety bound
+                # it was made at the LR before the last decrement
+                f, fwd, j_old = f_c, fwd_c, j_new
+            else:
+                f, fwd = f.axpy(-lr, g), None
             j_array.append(timing.to_host(
                 progs.record(fwd_i.u_values, f.quad)))
             divs_u.append(timing.to_host(div_dev))
@@ -345,6 +216,8 @@ def _run_gd_staged(cfg: OCPConfig, prob: "sys_mod.OCPProblem", f: Control,
                 exit_reason = "buoy_escape"
                 break
 
+    if dev.type != "cuda":
+        graphs.release(dev)      # the CPU chord's value holds prob.fac0
     last_u_values = (None if last_fwd is None
                      else timing.to_host(last_fwd.u_values))
     return GDRunResult(j_array, divs_u, x_array, outer_times, inner_times,

@@ -14,7 +14,8 @@ one device-to-host copy a cycle. Each call is one ``fgmres`` span
 syncs. With ``graph=True`` on a CUDA device the Arnoldi steps of a cycle
 are one CUDA graph (``_CycleGraph``): captured once, then replayed for
 every cycle, and for later calls with the same operator and
-preconditioner objects, whose tensors may change in place in between.
+preconditioner objects, whose tensors may change in place in between
+(``utils/graphs.py``).
 Replay launches the kernels of the eager steps on the same buffers, so
 the numbers are the eager loop's; the host dispatches a cycle once
 instead of once a cycle. The operator and the preconditioner must then
@@ -33,7 +34,6 @@ The restart, tolerance and cycle-count semantics are the JAX package's.
 
 from __future__ import annotations
 
-import weakref
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -41,7 +41,7 @@ import torch
 
 from ..fem.assemble import Operator, apply_bc_vector, gather_sum
 from ..fem.spaces import TaylorHoodSpace
-from ..utils import timing
+from ..utils import graphs, timing
 
 
 def operator_diagonal(op: Operator) -> torch.Tensor:
@@ -112,63 +112,27 @@ def _arnoldi(matvec, M, V, Z, H, tiny: float, steps: int) -> None:
 
 
 class _CycleGraph:
-    """One Arnoldi cycle captured as a CUDA graph on static V, Z, H.
+    """One Arnoldi cycle captured as a CUDA graph on static V, Z, H, by
+    ``capture`` (``utils/graphs.py::cached``). The graph reads the
+    tensors that ``matvec`` and ``M`` read when it was captured."""
 
-    The graph reads the tensors that ``matvec`` and ``M`` read when it was
-    captured, so it serves only those two objects (held by weak reference:
-    a new object of a dead one's id is not served). Each device keeps its
-    newest graph (``_GRAPHS``); a new capture shares the private memory
-    pool of the one it replaces, and is made before that one is freed,
-    so the pool stays alive and is reused by every capture."""
-
-    def __init__(self, matvec, M, v0: torch.Tensor, restart: int,
-                 pool, stream: torch.cuda.Stream):
-        n, dev = v0.shape[0], v0.device
-        self.key = (weakref.ref(matvec), weakref.ref(M), n, v0.dtype,
-                    restart)
-        self.pool, self.stream = pool, stream
+    def __init__(self, matvec, M, v0: torch.Tensor, restart: int, capture):
+        n = v0.shape[0]
         self.V = v0.new_zeros((restart + 1, n))
         self.Z = v0.new_zeros((restart, n))
         self.H = v0.new_zeros((restart + 1, restart))
         tiny = torch.finfo(v0.dtype).tiny
         self.V[0] = v0
-        stream.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(stream):
-            # one eager step on the capture stream first: cuBLAS binds its
-            # workspace to a stream on first use, which a capture forbids
-            _arnoldi(matvec, M, self.V, self.Z, self.H, tiny, 1)
-            self.graph = torch.cuda.CUDAGraph()
-            self.graph.capture_begin(pool=pool,
-                                     capture_error_mode="thread_local")
-            _arnoldi(matvec, M, self.V, self.Z, self.H, tiny, restart)
-            self.graph.capture_end()
-        torch.cuda.current_stream(dev).wait_stream(stream)
-
-    def serves(self, matvec, M, v0: torch.Tensor, restart: int) -> bool:
-        mv, m, n, dtype, r = self.key
-        return (mv() is matvec and m() is M and n == v0.shape[0]
-                and dtype == v0.dtype and r == restart)
+        (self.replay,) = capture(
+            (lambda: _arnoldi(matvec, M, self.V, self.Z, self.H, tiny,
+                              restart),),
+            warm_up=lambda: _arnoldi(matvec, M, self.V, self.Z, self.H,
+                                     tiny, 1))
 
     def run(self, v0: torch.Tensor):
         self.V[0] = v0
-        self.graph.replay()
+        self.replay()
         return self.V, self.Z, self.H
-
-
-_GRAPHS: dict = {}       # torch.device → its newest _CycleGraph
-
-
-def _graphed_cycle(matvec, M, v0: torch.Tensor, restart: int):
-    """V, Z, H of one Arnoldi cycle from v0 by the device's cycle graph,
-    captured anew unless the newest one serves (matvec, M)."""
-    dev = v0.device
-    old = _GRAPHS.get(dev)
-    if old is None or not old.serves(matvec, M, v0, restart):
-        pool = torch.cuda.graph_pool_handle() if old is None else old.pool
-        stream = torch.cuda.Stream(dev) if old is None else old.stream
-        _GRAPHS[dev] = _CycleGraph(matvec, M, v0, restart, pool, stream)
-        del old
-    return _GRAPHS[dev].run(v0)
 
 
 def fgmres(matvec: Callable[[torch.Tensor], torch.Tensor],
@@ -203,7 +167,11 @@ def fgmres(matvec: Callable[[torch.Tensor], torch.Tensor],
             beta = torch.linalg.norm(r)
             v0 = r / beta.clamp_min(tiny)
             if graph:
-                V, Z, H = _graphed_cycle(matvec, M, v0, restart)
+                V, Z, H = graphs.cached(
+                    "cycle", b.device, (matvec, M),
+                    (b.shape[0], v0.dtype, restart),
+                    lambda capture: _CycleGraph(matvec, M, v0, restart,
+                                                capture)).run(v0)
             else:
                 V = b.new_zeros((restart + 1, b.shape[0]))
                 Z = b.new_zeros((restart, b.shape[0]))

@@ -19,7 +19,6 @@ test stays on the host, one norm read a step.
 from __future__ import annotations
 
 import dataclasses
-import weakref
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -27,7 +26,7 @@ from torch.func import jvp
 
 from ..fem import assemble
 from ..ops import linalg
-from ..utils import timing
+from ..utils import graphs, timing
 
 
 class NewtonResult(NamedTuple):
@@ -169,24 +168,15 @@ class ChordGraph:
     two alone. The Dirichlet vectors, the float32 tables of the float32
     branch and ``f_quad``'s buffers are made once here, not every solve.
 
-    On a CUDA device both are CUDA graphs, captured here and replayed
-    (``graphed``); on the CPU they run eagerly. The graphs read the
-    tensors of ``fac0``, ``space`` and ``bq`` as they were captured, at
-    ν with ``correction_iters`` sweeps, so a graph serves only those
-    objects (held by weak reference: a new object of a dead one's id is
-    not served) and those constants (``serves``). Each device keeps its
-    newest graph (``_GRAPHS``); a new capture shares the private memory
-    pool and the stream of the one it replaces, as
-    ``solve/krylov.py::_CycleGraph`` does."""
+    ``capture`` (``utils/graphs.py::cached``) makes both CUDA graphs on a
+    CUDA device, replayed (``graphed``), and leaves them eager on the
+    CPU. The graphs read the tensors of ``fac0``, ``space`` and ``bq`` as
+    they were captured, at ν with ``correction_iters`` sweeps."""
 
     def __init__(self, fac0, space, bq, nu: float, bc_dofs: torch.Tensor,
                  bc_vals: torch.Tensor, f_quad: torch.Tensor, float32: bool,
-                 correction_iters: int, pool=None, stream=None):
+                 correction_iters: int, capture):
         dev = f_quad.device
-        self.refs = tuple(weakref.ref(o)
-                          for o in (fac0, space, bq, bc_dofs, bc_vals))
-        self.consts = (nu, float32, correction_iters, f_quad.shape,
-                       f_quad.dtype)
         self.w = torch.zeros(space.ndof, dtype=torch.float64, device=dev)
         self.r = torch.zeros_like(self.w)
         self.nrm = self.w.new_zeros(())
@@ -198,14 +188,7 @@ class ChordGraph:
                      self.g_full.to(torch.float32)) if float32 else None)
         step, residual = self._bodies(fac0, space, bq, nu, correction_iters)
         self.graphed = dev.type == "cuda"
-        if self.graphed:
-            self.pool = pool if pool is not None else \
-                torch.cuda.graph_pool_handle()
-            self.stream = stream if stream is not None else \
-                torch.cuda.Stream(dev)
-            self.graphs = self._capture(step, residual, dev)
-        else:
-            self.graphs = (step, residual)
+        self.graphs = capture((step, residual), warm_up=step)
 
     def _bodies(self, fac0, space, bq, nu: float, correction_iters: int):
         w, r, nrm, is_bc, g_full, f_quad = (self.w, self.r, self.nrm,
@@ -235,28 +218,6 @@ class ChordGraph:
 
         return step, residual
 
-    def _capture(self, step, residual, dev):
-        self.stream.wait_stream(torch.cuda.current_stream(dev))
-        graphs = []
-        with torch.cuda.stream(self.stream):
-            # one eager step on the capture stream first: cuBLAS binds its
-            # workspace (32 MiB on Hopper, outside the graph's pool) to a
-            # stream on first use, which a capture forbids
-            step()
-            for body in (step, residual):
-                g = torch.cuda.CUDAGraph()
-                g.capture_begin(pool=self.pool,
-                                capture_error_mode="thread_local")
-                body()
-                g.capture_end()
-                graphs.append(g.replay)
-        torch.cuda.current_stream(dev).wait_stream(self.stream)
-        return tuple(graphs)
-
-    def serves(self, objs: tuple, consts: tuple) -> bool:
-        return (all(ref() is o for ref, o in zip(self.refs, objs))
-                and self.consts == consts)
-
     def load(self, w0: torch.Tensor, f_quad: torch.Tensor) -> None:
         """Copy a solve's start and load into the static buffers."""
         self.w.copy_(w0)
@@ -271,27 +232,6 @@ class ChordGraph:
         self.graphs[1]()
 
 
-_GRAPHS: dict = {}       # torch.device → its newest ChordGraph
-
-
-def _chord_graph(fac0, space, bq, nu: float, bc_dofs, bc_vals, f_quad,
-                 float32: bool, correction_iters: int) -> ChordGraph:
-    """The device's chord graph, made anew unless the newest one serves
-    these objects and constants."""
-    objs = (fac0, space, bq, bc_dofs, bc_vals)
-    consts = (nu, float32, correction_iters, f_quad.shape, f_quad.dtype)
-    dev = f_quad.device
-    old = _GRAPHS.get(dev)
-    if old is None or not old.serves(objs, consts):
-        pool = getattr(old, "pool", None)
-        stream = getattr(old, "stream", None)
-        _GRAPHS[dev] = ChordGraph(fac0, space, bq, nu, bc_dofs, bc_vals,
-                                  f_quad, float32, correction_iters, pool,
-                                  stream)
-        del old
-    return _GRAPHS[dev]
-
-
 def chord_solve(space, bq, f_quad: torch.Tensor, nu: float,
                 w0: torch.Tensor, bc_dofs: torch.Tensor,
                 bc_vals: torch.Tensor, fac0, correction_iters: int = 1,
@@ -299,15 +239,20 @@ def chord_solve(space, bq, f_quad: torch.Tensor, nu: float,
                 atol: float = 1e-10, max_iter: int = 50) -> NewtonResult:
     """The chord Newton of ``newton_solve`` (``reuse_factorization`` on
     the factors ``fac0``) for ``assemble.ns_residual`` of ``space``,
-    ``bq`` and ``f_quad`` at ν, from w0, on the device's ``ChordGraph``:
-    the iterations, residual norms and state of ``newton_solve`` bit for
+    ``bq`` and ``f_quad`` at ν, from w0, on the device's newest
+    ``ChordGraph``, made anew unless it serves these objects and
+    constants (``utils/graphs.py::cached``): the iterations, residual norms and state of ``newton_solve`` bit for
     bit. ``float32`` runs the sweeps on the float32 twin of the residual,
     as ``residual_fn32`` does there. ``graph_steps`` counts the steps
     that ran as a graph replay: all of them on a CUDA device, none on
     the CPU. A step is the span ``newton.step`` (``graph`` 1 where it is
     a replay), each norm read the span ``newton.residual``."""
-    g = _chord_graph(fac0, space, bq, nu, bc_dofs, bc_vals, f_quad, float32,
-                     correction_iters)
+    g = graphs.cached(
+        "chord", f_quad.device, (fac0, space, bq, bc_dofs, bc_vals),
+        (nu, float32, correction_iters, f_quad.shape, f_quad.dtype),
+        lambda capture: ChordGraph(fac0, space, bq, nu, bc_dofs, bc_vals,
+                                   f_quad, float32, correction_iters,
+                                   capture))
     g.load(w0, f_quad)
     with timing.span("newton.residual"):
         g.residual()

@@ -26,7 +26,7 @@ modes, on the [0,2]² square and the L-shape, either diagonal).
     make_differentiable_ns_solver   f_quad → w with the implicit-function
                        VJP, for autograd through the whole forward map
     make_staged_pair   the stages of one iteration for a host loop (the
-                       driver's staged loop; the ladder a rung at a time,
+                       driver's loop; the ladder a rung at a time,
                        warm begin/probe)
     make_newton_stager, run_newton_staged   the multigrid Newton a step
                        at a time: re-freeze on a stall, stagnation break
@@ -69,7 +69,7 @@ from .ops import linalg
 from .solve import (newton_solve, solve_operator, solve_operator_reuse_t,
                     GradProjector, NewtonResult)
 from .solve import mg as mg_mod
-from .solve.newton import chord_solve, float32_tables
+from .solve.newton import chord_solve
 from .solve.mg import MGContext
 from .utils import timing
 
@@ -543,11 +543,11 @@ def solve_ns(prob: OCPProblem, f_quad: torch.Tensor,
     then factorizes J(w_start) each step rather than reusing the Stokes
     factor of w = 0. The "ns_newton" record says ``warm_start``.
 
-    The chord on a CUDA device, with the problem's Stokes factor, runs
-    each step as a replay of a CUDA graph (``solve/newton.py::
-    chord_solve``): the numbers of the eager chord, bit for bit. The
-    "ns_newton" record and span give ``graph_steps``, the steps that ran
-    so (0 elsewhere)."""
+    The chord runs on the problem's Stokes factor ``fac0`` (a
+    ``ValueError`` without one) through ``solve/newton.py::chord_solve``:
+    on a CUDA device each step is a replay of a CUDA graph, the numbers
+    of the eager chord bit for bit. The "ns_newton" record and span give
+    ``graph_steps``, the steps that ran so (0 elsewhere)."""
     with timing.span("ns_newton") as span:
         warm = w_start is not None
         w = (w_start if warm
@@ -569,27 +569,19 @@ def solve_ns(prob: OCPProblem, f_quad: torch.Tensor,
 
         if ladder or prob.linear_solver == "mg" or (warm and prob.nu < 1.0):
             res = _newton_at(prob, f_quad, prob.nu, w, matvec_of=matvec_of)
-        elif prob.newton_reuse_lu and prob.fac0 is not None and w.is_cuda:
+        elif prob.newton_reuse_lu:
+            if prob.fac0 is None:
+                raise ValueError("the chord Newton (newton_reuse_lu) runs "
+                                 "on the problem's Stokes factor; fac0 is "
+                                 "None")
             res = chord_solve(prob.space, prob.bq, f_quad, prob.nu, w,
                               prob.bc_dofs, prob.bc_vals, prob.fac0,
                               prob.newton_correction_iters,
                               float32=prob.newton_chord_f32)
         else:
-            residual32 = None
-            if prob.newton_chord_f32 and prob.newton_reuse_lu:
-                space32 = float32_tables(prob.space)
-                bq32 = float32_tables(prob.bq)
-                f_quad32 = f_quad.to(torch.float32)
-
-                def residual32(w32):
-                    return assemble.ns_residual(space32, bq32, w32, f_quad32,
-                                                prob.nu)
             res = newton_solve(_residual_at(prob, f_quad, prob.nu),
                                _operator_at(prob, prob.nu), w,
-                               prob.bc_dofs, prob.bc_vals,
-                               reuse_factorization=prob.newton_reuse_lu,
-                               correction_iters=prob.newton_correction_iters,
-                               fac0=prob.fac0, residual_fn32=residual32)
+                               prob.bc_dofs, prob.bc_vals, fac0=prob.fac0)
         _log_solve(prob, solve="ns_newton", iterations=res.iterations,
                    residual_norm=res.residual_norm, converged=res.converged,
                    krylov_cycles=list(res.krylov_cycles), warm_start=warm,
@@ -972,12 +964,12 @@ def gd_multi_step(prob: OCPProblem, f: Control, lr, n_steps: int,
 # PyTorch each is a plain function over the stages above. What they carry
 # is numerics: warm starts, the stepped multigrid Newton with its re-freeze
 # and stagnation break, the staged adjoint with its plateau rule, and the
-# host loops of ``opt/driver.py::_run_gd_staged`` and
+# host loops of ``opt/driver.py::run_gradient_descent`` and
 # ``scripts/hires_mg_run_torch.py``.
 
 class StagedPrograms(NamedTuple):
     """The stages of one GD iteration, split so that a host Armijo loop
-    can drive them; the accepted probe's forward state carries into the
+    can drive them; the accepted probe's forward state may carry into the
     next iteration (the ``reuse_ls_forward`` trade)."""
     begin: object    # f_quad → (fwd, J)
     grad: object     # (f, fwd) → (z, g, gradj, div_u, adj_ok)

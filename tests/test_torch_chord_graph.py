@@ -27,7 +27,7 @@ from torch.func import jvp
 from ocean_torch import system
 from ocean_torch.ops import linalg
 from ocean_torch.solve import newton
-from ocean_torch.utils import timing
+from ocean_torch.utils import graphs, timing
 
 from torch_parallel_cases import tiny_problem
 
@@ -187,7 +187,7 @@ def _graph_for(prob, f_quad):
                        prob.bc_dofs, prob.bc_vals, prob.fac0,
                        prob.newton_correction_iters,
                        float32=prob.newton_chord_f32)
-    return newton._GRAPHS[torch.device("cpu")]
+    return graphs.newest("chord", torch.device("cpu"))
 
 
 def test_one_graph_serves_a_problem_and_its_copies(problems):
@@ -256,3 +256,19 @@ def test_the_spans_and_syncs_of_a_chord_solve(problems):
                      + ["newton.step", "newton.residual"] * res.iterations)
     assert [s.attrs.get("graph") for s in rec[2::2]] == [0] * res.iterations
     assert [s.syncs for s in rec] == [0, 1] + [0, 1] * res.iterations
+
+
+def test_a_chord_without_the_stokes_factor_is_refused(problems):
+    """``solve_ns`` runs every chord on the problem's factor; without one
+    it raises, and the full Newton of the same problem still solves."""
+    prob = problems["lu32"]
+    f_quad = _controls(prob)[0]
+    with pytest.raises(ValueError, match="fac0"):
+        system.solve_ns(dataclasses.replace(prob, fac0=None), f_quad)
+    full = system.solve_ns(
+        dataclasses.replace(prob, fac0=None, newton_reuse_lu=False), f_quad)
+    fns, _ = _args(prob, f_quad, False)
+    want = newton.newton_solve(*fns, _zeros(prob), prob.bc_dofs,
+                               prob.bc_vals)
+    assert full.converged
+    _same(full, want)

@@ -897,6 +897,7 @@ def test_the_chord_graph_is_the_eager_chord(dev, float32):
     from ocean_torch import system
     from ocean_torch.ops import linalg
     from ocean_torch.solve import newton
+    from ocean_torch.utils import graphs
     _, prob = _chord_problem(dev, newton_chord_f32=float32)
     assert isinstance(prob.fac0, linalg.InvSolver)
     loads = [system.initial_control(prob, c).quad for c in (0, 4)]
@@ -905,7 +906,7 @@ def test_the_chord_graph_is_the_eager_chord(dev, float32):
     args = (prob.bc_dofs, prob.bc_vals, prob.fac0,
             prob.newton_correction_iters)
     starts = [(f, zero) for f in loads]
-    graphs, results = [], []
+    served, results = [], []
     for k in range(4):
         f_quad, w0 = (starts[k] if k < 3
                       else (0.9 * loads[2], results[2].w))
@@ -913,8 +914,8 @@ def test_the_chord_graph_is_the_eager_chord(dev, float32):
                              float32=float32)
         got = newton.chord_solve(prob.space, prob.bq, f_quad, prob.nu, w0,
                                  *args, float32=float32)
-        graphs.append(newton._GRAPHS[zero.device])
-        assert graphs[-1].graphed
+        served.append(graphs.newest("chord", zero.device))
+        assert served[-1].graphed
         assert torch.equal(got.w, eager.w)
         assert (got.iterations, got.residual_norm, got.converged) == \
             (eager.iterations, eager.residual_norm, eager.converged)
@@ -925,12 +926,12 @@ def test_the_chord_graph_is_the_eager_chord(dev, float32):
     res = system.solve_ns(copy, loads[0])
     assert torch.equal(res.w, results[0].w)
     assert copy.solve_log[-1]["graph_steps"] == res.iterations
-    assert all(g is graphs[0] for g in graphs)
-    assert newton._GRAPHS[zero.device] is graphs[0]
+    assert all(g is served[0] for g in served)
+    assert graphs.newest("chord", zero.device) is served[0]
     other = dataclasses.replace(copy, fac0=linalg.InvSolver(
         prob.fac0.ainv.clone(), prob.fac0.ainv_t))
     res = system.solve_ns(other, loads[2])
-    assert newton._GRAPHS[zero.device] is not graphs[0]
+    assert graphs.newest("chord", zero.device) is not served[0]
     assert torch.equal(res.w, results[2].w)
     assert res.graph_steps == res.iterations == results[2].iterations
 

@@ -30,6 +30,7 @@ from ocean_torch import control as ctrl_mod, convert, system
 from ocean_torch.config import OCPConfig
 from ocean_torch.opt import driver
 from ocean_torch.opt.driver import GDRunResult, run_gradient_descent
+from ocean_torch.utils import graphs
 
 # The suite runs in several worker processes on one machine; PyTorch's
 # default of one thread a core in each of them oversubscribes it.
@@ -150,3 +151,60 @@ def test_on_iteration_and_result_fields(setup):
     assert j_rec == res.j_array[-1]
     # the driver's clock waits for the device only on a card
     assert driver._clock(torch.device("cpu")) > 0
+
+
+@pytest.mark.parametrize("search", ["accepts", "safety_bound", "off"])
+def test_forward_solves_of_each_mode(setup, monkeypatch, search):
+    """The forward solves (``system.forward``) of a 3-iteration run. The
+    staged mode solves once and then carries the last probe. The
+    per-stage mode with ``reuse_ls_forward`` carries a probe the Armijo
+    test accepted and solves anew after one it did not (at the safety
+    bound); without the reuse, or without the line search, it solves
+    every iteration; without the line search it makes no probe. The per-stage records do not depend on the
+    reuse."""
+    _, pt, _, ft = setup
+    kw = dict(accepts=dict(use_line_search=True, LR=1000.0),
+              safety_bound=dict(use_line_search=True, LR=1000.0,
+                                max_line_search_iters=1),
+              off=dict(use_line_search=False, LR=5.0))[search]
+    cfg = OCPConfig(**BASE, num_steps=3, **kw)
+    calls = []
+    real = system.forward
+    monkeypatch.setattr(system, "forward",
+                        lambda p, q, **kw: calls.append(1) or real(p, q,
+                                                                   **kw))
+    runs = {}
+    for staged, reuse in ((True, True), (False, True), (False, False)):
+        calls.clear()
+        res = run_gradient_descent(cfg, pt, ft, verbose=False,
+                                   staged=staged, reuse_ls_forward=reuse)
+        runs[staged, reuse] = res, len(calls), sum(res.inner_iterations)
+    (staged, n_staged, p_staged), (reuse, n_reuse, probes), \
+        (fresh, n_fresh, p_fresh) = runs.values()
+    assert p_fresh == probes
+    assert n_fresh == 3 + probes
+    assert n_reuse == (1 if search == "accepts" else 3) + probes
+    assert n_staged == 1 + (3 if search == "off" else p_staged)
+    assert probes == {"accepts": 6, "safety_bound": 3, "off": 0}[search]
+    assert reuse.j_array == fresh.j_array and reuse.lr == fresh.lr
+    assert reuse.inner_iterations == fresh.inner_iterations
+    assert torch.equal(reuse.f.quad, fresh.f.quad)
+    assert torch.equal(reuse.f.p2, fresh.f.p2)
+
+
+def test_a_cpu_job_releases_its_chord_graph(setup):
+    """On the CPU the chord's cached value (``utils/graphs.py``) holds
+    the problem's Stokes factor; the job serves one value to all its
+    solves and drops it when it ends."""
+    _, pt, _, ft = setup
+    prob = dataclasses.replace(pt, newton_reuse_lu=True)
+    cfg = OCPConfig(**BASE, use_line_search=True, num_steps=2, LR=1000.0,
+                    newton_reuse_lu=True)
+    cpu = torch.device("cpu")
+    seen = []
+    res = run_gradient_descent(
+        cfg, prob, ft, verbose=False,
+        on_iteration=lambda *a: seen.append(graphs.newest("chord", cpu)))
+    assert len(seen) == res.iterations_run == 2 and seen[0] is seen[1]
+    with pytest.raises(KeyError):
+        graphs.newest("chord", cpu)
