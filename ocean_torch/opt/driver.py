@@ -99,7 +99,12 @@ def run_gradient_descent(cfg: OCPConfig, prob: "sys_mod.OCPProblem",
     finite diverged on its stale factors and is re-solved with fresh
     factorizations. ``on_iteration(i, f, fwd, z, j_array)`` runs after
     each iteration's records. The whole run is the span ``gd_job``, each
-    iteration a ``gd_iteration`` (``utils/timing.py``)."""
+    iteration a ``gd_iteration`` (``utils/timing.py``).
+
+    On the card each iteration's trajectories are copied into page-locked
+    host memory without a wait (span ``trajectory_copy``, ``pinned`` 1);
+    one ``timing.sync`` before the return makes ``x_array`` safe to
+    read."""
     if escape_threshold is None:
         escape_threshold = prob.K / 2
     if df is None:
@@ -146,8 +151,9 @@ def run_gradient_descent(cfg: OCPConfig, prob: "sys_mod.OCPProblem",
                       f"iteration {i}")
             last_fwd, last_z = fwd, z
             with timing.span("trajectory_copy",
-                             bytes=fwd.x.numel() * fwd.x.element_size()):
-                x_array.append(timing.to_host(fwd.x))
+                             bytes=fwd.x.numel() * fwd.x.element_size(),
+                             pinned=int(fwd.x.is_cuda)):
+                x_array.append(timing.to_host_async(fwd.x))
             it_run = i + 1
 
             # gradient check at i == 0
@@ -218,6 +224,7 @@ def run_gradient_descent(cfg: OCPConfig, prob: "sys_mod.OCPProblem",
 
     if dev.type != "cuda":
         graphs.release(dev)      # the CPU chord's value holds prob.fac0
+    timing.sync(dev)     # the trajectory copies have landed in x_array
     last_u_values = (None if last_fwd is None
                      else timing.to_host(last_fwd.u_values))
     return GDRunResult(j_array, divs_u, x_array, outer_times, inner_times,

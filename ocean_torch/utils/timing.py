@@ -12,7 +12,9 @@ s.set(iterations=n)``) or as a decorator (``@span("cost")``).
 ``to_host(t)`` is the one way the hot path reads a device value on the
 host, and ``sync`` the one way it waits for the device: each call counts
 as one host sync of the innermost open span, on the CPU too, where it
-waits for nothing. Recording is on exactly while a ``torch.profiler``
+waits for nothing. ``to_host_async(t)`` queues a copy into page-locked
+host memory and does not wait: its values may be read only after a
+``sync`` of the device. Recording is on exactly while a ``torch.profiler``
 session runs (``torch.autograd._profiler_enabled()``): then each span is
 kept as a ``SpanRecord``, opens a ``torch.profiler.record_function``
 range of the same name, and Python's garbage collections inside a span
@@ -30,6 +32,7 @@ import gc
 import time
 from typing import List, Optional
 
+import numpy as np
 import torch
 
 _recording = torch.autograd._profiler_enabled
@@ -69,6 +72,22 @@ def to_host(t: torch.Tensor):
     as ``t.cpu().numpy()`` (which shares a CPU tensor's memory)."""
     _RECORD.count_sync()
     return t.item() if t.dim() == 0 else t.cpu().numpy()
+
+
+def to_host_async(t: torch.Tensor) -> np.ndarray:
+    """``t`` on the host as a numpy array, without a host sync (not
+    counted). A CUDA tensor is copied into a block of page-locked memory
+    from PyTorch's caching host allocator, queued on the current stream:
+    the values are there once the device has reached the copy, so read
+    them after a ``sync`` of the device. The allocator hands the block
+    back only once the copy is done, and stream order keeps later writes
+    to ``t``'s memory behind it. A CPU tensor is ``t.numpy()``, sharing
+    its memory, as ``to_host`` gives it."""
+    if not t.is_cuda:
+        return t.numpy()
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    return host.numpy()
 
 
 class Timer:
