@@ -68,10 +68,18 @@ def load_metric(name: str):
     return mod
 
 
-def per_layer_metrics(spec: dict, cell: str) -> list:
-    return [m for m in spec["per_layer"]
+def _of_cell(metrics: list, spec: dict, cell: str) -> list:
+    return [m for m in metrics
             if cell in m.get("workloads", [w["name"]
                                            for w in spec["workloads"]])]
+
+
+def per_layer_metrics(spec: dict, cell: str) -> list:
+    return _of_cell(spec["per_layer"], spec, cell)
+
+
+def end_to_end_metrics(spec: dict, cell: str) -> list:
+    return _of_cell(spec["end_to_end"], spec, cell)
 
 
 def forbidden_modules() -> list:
@@ -93,7 +101,7 @@ def port_config(cfg: dict):
         tau=cfg["tau"], c_armijo=cfg["c_armijo"], LR_MIN=cfg["LR_MIN"],
         LR_MAX=cfg["LR"], LR=cfg["LR"], conv_crit=cfg["conv_crit"],
         max_line_search_iters=cfg["max_line_search_iters"],
-        **cfg["program"])
+        newton_continuation=cfg.get("continuation", 0), **cfg["program"])
 
 
 class _StopWindow(Exception):
@@ -249,17 +257,22 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
     return out
 
 
-def end_to_end(r: dict) -> dict:
-    w = r["window"]
-    times = w["iteration_times"]
+def window_times(w: dict) -> dict:
+    """The window's timings on the host clock: seconds an iteration over
+    all of it, the 90th percentile of the iterations' own times, seconds
+    a whole job."""
     return {
         "iter_s": w["seconds"] / w["iterations"],
-        "iter_p90_s": statistics.quantiles(times, n=10,
+        "iter_p90_s": statistics.quantiles(w["iteration_times"], n=10,
                                            method="inclusive")[8],
         "solve_s": sum(w["jobs"]) / len(w["jobs"]),
-        "peak_mem_gib": r["peak_bytes"] / 2 ** 30,
-        "setup_s": r["setup_s"],
     }
+
+
+def end_to_end(r: dict) -> dict:
+    return dict(window_times(r["window"]),
+                peak_mem_gib=r["peak_bytes"] / 2 ** 30,
+                setup_s=r["setup_s"])
 
 
 def result_line(r: dict, name: str, trace: bool, units: dict) -> dict:

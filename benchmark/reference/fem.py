@@ -326,10 +326,14 @@ class Solver:
 
 
 def newton(sp: Space, residual, jacobian, w0: torch.Tensor,
-           bc: torch.Tensor, bc_vals: torch.Tensor, max_iter: int = 30):
+           bc: torch.Tensor, bc_vals: torch.Tensor, max_iter: int = 30,
+           stop_on_rise: bool = True):
     """Full Newton with identity Dirichlet rows, a fresh factorization
     every step, carried until the residual stops falling by half a step
-    (the precision's floor) or is 1e-14 of the first."""
+    (the precision's floor) or is 1e-14 of the first. With
+    ``stop_on_rise`` a step that raises the residual ends the solve and
+    is not taken; without it every step is taken (the rungs of a
+    ν-continuation, which may climb before they fall)."""
     is_bc = torch.zeros(sp.ndof, dtype=torch.bool, device=w0.device)
     is_bc[bc] = True
     g = torch.zeros_like(w0).index_copy(0, bc, bc_vals)
@@ -346,7 +350,7 @@ def newton(sp: Space, residual, jacobian, w0: torch.Tensor,
         r_new = res(w_new)
         rn_new = float(torch.linalg.norm(r_new))
         it += 1
-        if not rn_new < rn:
+        if stop_on_rise and not rn_new < rn:
             break
         stalled = rn_new > 0.5 * rn and rn < 1e-6 * r0
         w, r, rn = w_new, r_new, rn_new

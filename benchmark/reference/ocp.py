@@ -8,6 +8,9 @@ equations and the reference program's rules alone.
           J(f) − J(f − lr g) ≥ lr · c · ∫_Γ₁ |g|² ds
 
 The control lives at the Γ₁ quadrature points (4 Gauss points a facet).
+Below ν = 1 a configuration may give ``continuation``, the number of
+rungs of a ν-ladder that each forward solve climbs down before the solve
+at ν (``Reference.viscosities``).
 ``dtype`` sets the precision of everything; float32 makes the control of
 the comparison.
 """
@@ -53,13 +56,31 @@ class Reference:
                  torch.sin(pi * x[..., 0]) * torch.cos(pi * x[..., 1])], -1)
         return torch.zeros_like(x) + self.tensor(c)
 
+    def viscosities(self) -> list:
+        """The ν of each Newton solve of a forward pass. With the
+        configuration's ``continuation`` = n > 0 and ν < 1: the ladder
+        ν_k = r^k for k = 0..n, r = ν^(1/(n+1)), then ν itself."""
+        n = int(self.cfg.get("continuation", 0))
+        if n <= 0 or self.nu >= 1.0:
+            return [self.nu]
+        r = self.nu ** (1.0 / (n + 1))
+        return [r ** k for k in range(n + 1)] + [self.nu]
+
     def forward(self, f_quad: torch.Tensor) -> dict:
         sp = self.sp
-        w, its, rel = fem.newton(
-            sp, lambda w: fem.ns_residual(sp, w, f_quad, self.nu),
-            lambda w: fem.ns_jacobian(sp, w, self.nu, sp.bc),
-            torch.zeros(sp.ndof, dtype=self.dtype, device=self.device),
-            sp.bc, self.bc_vals)
+        w = torch.zeros(sp.ndof, dtype=self.dtype, device=self.device)
+        ladder = self.viscosities()
+        # a ladder's solves are full Newtons of at most 50 steps that take
+        # every step, each from the last one's state
+        extra = ({} if len(ladder) == 1
+                 else dict(max_iter=50, stop_on_rise=False))
+        its = 0
+        for nu in ladder:
+            w, n, rel = fem.newton(
+                sp, lambda w, nu=nu: fem.ns_residual(sp, w, f_quad, nu),
+                lambda w, nu=nu: fem.ns_jacobian(sp, w, nu, sp.bc),
+                w, sp.bc, self.bc_vals, **extra)
+            its += n
         u, _ = sp.split(w)
         x, uv, mask = ode.primal(sp, u, self.x0, self.h, self.nt,
                                  self.center)

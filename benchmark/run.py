@@ -77,7 +77,8 @@ def main(argv=None) -> int:
               f"{sorted({n for n, _, _ in r['trace'].lu})}, device seconds "
               f"min {lu[0]!r} median {lu[len(lu) // 2]!r} max {lu[-1]!r}",
               file=sys.stderr)
-    units = {m["name"]: m["unit"] for m in spec["end_to_end"]}
+    units = {m["name"]: m["unit"]
+             for m in harness.end_to_end_metrics(spec, args.workload)}
     line = harness.result_line(r, args.workload, bool(args.trace), units)
     check.print_table(r["table"], r["correct"])
     print(json.dumps(line), flush=True)

@@ -1,4 +1,4 @@
-"""Small sizes of the two cells for runs on the CPU, and one run of each
+"""Small sizes of the cells for runs on the CPU, and one run of each
 that several tests read."""
 
 import os
@@ -17,6 +17,7 @@ SMALL = {
         resolution=6, starts={"grid": [[0.1, 0.4, 4], [0.25, 1.75, 4]]},
         alpha_buoys=16, num_steps=8),
     "lshape_res50.armijo": dict(resolution=8, num_steps=8),
+    "square_k10.armijo": dict(resolution=8),
 }
 
 

@@ -54,12 +54,14 @@ def _altered_velocity(prob):
     system._primal_ode = altered
     return lambda: setattr(system, "_primal_ode", orig)
 
+@pytest.mark.parametrize("cell", ["square_k10000.armijo",
+                                  "square_k10.armijo"])
 @pytest.mark.parametrize("fault", [_unchanged_step, _half_the_buoys,
                                    _altered_velocity])
-def test_a_broken_timed_path_is_not_correct(fault):
+def test_a_broken_timed_path_is_not_correct(fault, cell):
     undo = []
     try:
-        r = small_run("square_k10000.armijo", seconds=0.0,
+        r = small_run(cell, seconds=0.0,
                       on_problem=lambda prob: undo.append(fault(prob)))
     finally:
         for u in undo:

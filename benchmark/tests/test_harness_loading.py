@@ -41,7 +41,9 @@ def test_every_per_layer_metric_has_a_reader():
     cells = {w["name"] for w in spec["workloads"]}
     for m in spec["per_layer"]:
         assert set(m.get("workloads", cells)) <= cells
-        assert m["moves"] in {e["name"] for e in spec["end_to_end"]}
+        for c in m.get("workloads", cells):
+            assert m["moves"] in {e["name"] for e in
+                                  harness.end_to_end_metrics(spec, c)}
 
 
 def test_metrics_are_listed_per_cell():
@@ -52,6 +54,9 @@ def test_metrics_are_listed_per_cell():
         spec, "lshape_res50.armijo")}
     assert "kernels.roofline_pct" in sq - ls
     assert "linalg.lu_roofline_pct" in ls - sq
+    k10 = {m["name"] for m in harness.end_to_end_metrics(
+        spec, "square_k10.armijo")}
+    assert k10 == {"peak_mem_gib", "setup_s"}
 
 
 def test_a_new_cell_and_metric_are_new_files_only(tmp_path):

@@ -131,8 +131,15 @@ def test_the_readers_with_nothing_to_read(monkeypatch):
 def test_the_traced_runs_report_the_four_metrics(small_runs, cell):
     spec = harness.benchmark_spec()
     line = harness.result_line(small_runs[cell], cell, True, {})
-    for m in METRICS:
-        assert m in {x["name"] for x in harness.per_layer_metrics(spec,
-                                                                  cell)}
+    listed = {x["name"] for x in harness.per_layer_metrics(spec, cell)}
+    if cell == "square_k10.armijo":
+        # the K=10 cell reports no iter_s, so no metric that moves it;
+        # its window's timings are read per layer instead
+        assert not listed & set(METRICS)
+        names = ("driver.iter_s", "driver.iter_p90_s", "driver.solve_s")
+    else:
+        names = METRICS
+    for m in names:
+        assert m in listed
         v = line["metrics"][m]["value"]
         assert math.isfinite(v) and v > 0, m
